@@ -4,8 +4,9 @@
 
 Same parameter names and parsing as ``ntlink_tpu.cli`` (its `parse_args`
 and `build_config` are reused). Only the `pair` target is ported; every
-other target exits non-zero with "not yet ported: <target>". The mapping
-runs on the CUDA card and exits non-zero when there is none.
+other target exits non-zero with "not yet ported: <target>". The contig
+sketch and the read mapping run on the CUDA card, and the command exits
+non-zero when there is none.
 """
 from __future__ import annotations
 
@@ -58,6 +59,11 @@ def main(argv: List[str] | None = None) -> int:
                   "sensitive", "verbose", "paf", "pairs_tsv"):
         print(f"\t{field}={getattr(cfg, field)}")
     print(f"\tprefix={cfg.resolved_prefix()}")
+    # what the knobs ask for; the mapper's own line says what ran (the
+    # contig-count gate needs the index)
+    prechained, runs_only = pipeline.requested_modes(cfg)
+    print(f"\tprechained={prechained}")
+    print(f"\truns_only={runs_only}")
     print(f"\tdevice={dev} ({torch.cuda.get_device_name(dev)})")
     pipeline.pair_stage(cfg, device=dev)
     return 0

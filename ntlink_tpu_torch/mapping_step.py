@@ -1,13 +1,14 @@
-"""The fused read-mapping step on one device, in PyTorch.
+"""The fused read-mapping and sketch steps on one device, in PyTorch.
 
 Counterpart of the single-device parts of ``ntlink_tpu/parallel/mesh.py``:
 `DeviceIndex` (:61-151), `hash_bucket_join` (:234-266), `select_minimizers`
-(:282-308), `compact_flat` (:311-323), `unpack_codes` (:326-338) and
-`mapping_step_packed` (:570-753) with on-device chaining off, no hash planes
-and no N mask. One call per read batch:
+(:282-308), `compact_flat` (:311-323), `unpack_codes` / `unpack_bits`
+(:326-348), `mapping_step_packed` (:570-753) without hash planes, and
+`sketch_step_packed` (:756-837). One call per read batch:
 
-    unpack codes -> sketch kernel -> select minimizers -> gather + finish
-    hash -> bucket hash join -> compact matched anchors
+    unpack codes [+ N mask] -> sketch kernel [-> windows over valid k-mers]
+    -> select minimizers -> gather + finish hash -> bucket hash join
+    [-> chaining acceptance [-> run summaries]] -> compact
 
 The sketch runs through `ops.sketch_cuda.sketch_rows` (the Hopper kernel on
 a CUDA device); every other stage is plain tensor code. The result is one
@@ -26,8 +27,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .chain import RUN_LANES, chain_anchors_device, summarize_runs_device
 from .ops.sketch_cuda import sketch_rows
-from .ops.sketch_torch import finish_hash, shr
+from .ops.sketch_torch import compact_windows, finish_hash, shr
 
 _FIB = 0x9E3779B1  # 32-bit Fibonacci hashing constant (mesh.py:29)
 BUCKET = 8
@@ -209,15 +211,53 @@ def pack_codes(codes: np.ndarray) -> np.ndarray:
     return c[:, :, 0] | (c[:, :, 1] << 2) | (c[:, :, 2] << 4) | (c[:, :, 3] << 6)
 
 
+def unpack_bits(packed: torch.Tensor, L: int) -> torch.Tensor:
+    """(B, L//8) bit-packed uint8 (little bit order, as
+    ``np.packbits(..., bitorder="little")``) -> (B, L) bool."""
+    shifts = torch.arange(8, dtype=torch.uint8, device=packed.device)
+    bits = (packed[:, :, None] >> shifts) & 1
+    return bits.reshape(packed.shape[0], L).to(torch.bool)
+
+
+def sketch_batch(packed: torch.Tensor, lengths: torch.Tensor, k: int,
+                 w: int, L: int, nmask=None):
+    """Unpack and sketch one batch: (can, fwd, winner, emit) as in
+    `ops.sketch_torch.sketch_rows_ref`. `nmask` ((B, L//8) bit-packed
+    uint8, ``stream_pipeline.split_n_rows``) marks the non-ACGT bases of a
+    batch whose rows were cleaned to A for packing: the kernel's hash and
+    strand planes are right on every k-mer that covers no such base, and
+    the windows are taken again over the valid k-mers
+    (`sketch_torch.compact_windows`)."""
+    can, fwd, winner, emit = sketch_rows(unpack_codes(packed, L), lengths,
+                                         k, w)
+    if nmask is not None:
+        winner, emit = compact_windows(can, unpack_bits(nmask, L), lengths,
+                                       k, w)
+    return can, fwd, winner, emit
+
+
 def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
-                 index: DeviceIndex, k: int, w: int, L: int,
-                 slots: int) -> torch.Tensor:
+                 index: DeviceIndex, k: int, w: int, L: int, slots: int,
+                 nmask=None, clen=None, z: int = 0,
+                 runs: bool = False) -> torch.Tensor:
     """One batch: packed (B, L//4) uint8 and lengths (B,) int32 on the
     index's device -> the flat int32 payload described in the module
-    docstring (2B + 3*B*slots lanes)."""
+    docstring (2B + 3*B*slots lanes). `nmask`: see `sketch_batch`.
+
+    With `clen` ((n_contigs,) int32 contig lengths on the device) and `z`,
+    the chaining acceptance stages run here (`chain.chain_anchors_device`)
+    and only the anchors of accepted runs ship; rows with more than
+    RUN_LANES runs report n_minimizers > slots so that the host chains them
+    exactly. With `runs` (which needs `clen`), the payload is O(runs):
+
+        [n_runs (B) | overflow (B) | cid | count | f_cpos | l_cpos |
+         f_rposw | l_rposw]   (each plane B*RUN_LANES lanes)
+
+    where overflow is RUN_LANES + 1 for a row the host must map again
+    (slot or run-lane overflow) and 0 otherwise, and the planes hold every
+    row's merged runs packed to the front in read order."""
     B = packed.shape[0]
-    codes = unpack_codes(packed, L)
-    can, fwd, winner, emit = sketch_rows(codes, lengths, k, w)
+    can, fwd, winner, emit = sketch_batch(packed, lengths, k, w, L, nmask)
     sel, sel_ok, n_min = select_minimizers(emit, slots)
     m_pos = winner.to(torch.int64).gather(1, sel)
     h = finish_hash(can.gather(1, m_pos), k)
@@ -231,6 +271,47 @@ def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
         | (cstrand.to(torch.int32) << 29)
         | (m_fwd.to(torch.int32) << 30)
     )
+    n_rep = n_min
+    if clen is not None:
+        found, chain_overflow = chain_anchors_device(
+            found, cid, cpos, lengths, clen, z, k
+        )
+        if runs:
+            valid, *fields = summarize_runs_device(found, cid, cpos, rposw)
+            planes = compact_flat(valid, fields, B * RUN_LANES)
+            over = (n_min > slots) | chain_overflow
+            meta = torch.cat([
+                valid.sum(dim=1), torch.where(over, RUN_LANES + 1, 0),
+            ]).to(torch.int32)
+            return torch.cat([meta] + planes)
+        n_rep = torch.where(chain_overflow, n_min.clamp(min=slots + 1), n_min)
     planes = compact_flat(found, (rposw, cid, cpos), B * slots)
-    meta = torch.cat([found.sum(dim=1), n_min]).to(torch.int32)
+    meta = torch.cat([found.sum(dim=1), n_rep]).to(torch.int32)
+    return torch.cat([meta] + planes)
+
+
+def sketch_step(packed: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
+                L: int, max_mins: int, nmask=None) -> torch.Tensor:
+    """Sketch-only step (``mesh.sketch_step_packed``): one batch ->
+
+        [count (B) | n_minimizers (B) | pos_strand | hash_hi | hash_lo]
+
+    in int32, each plane B*max_mins lanes holding every row's minimizers
+    packed to the front in row order: pos_strand = position | fwd << 30,
+    and the reported hash's uint32 halves. A row with n_minimizers >
+    max_mins kept only its first max_mins and must be sketched again on
+    the host; `count` is what it shipped."""
+    B = packed.shape[0]
+    can, fwd, winner, emit = sketch_batch(packed, lengths, k, w, L, nmask)
+    sel, sel_ok, n_min = select_minimizers(emit, max_mins)
+    m_pos = winner.to(torch.int64).gather(1, sel)
+    h = finish_hash(can.gather(1, m_pos), k)
+    pos_strand = m_pos.to(torch.int32) | (
+        fwd.gather(1, m_pos).to(torch.int32) << 30
+    )
+    planes = compact_flat(
+        sel_ok, (pos_strand, _lo32_as_i32(shr(h, 32)), _lo32_as_i32(h)),
+        B * max_mins,
+    )
+    meta = torch.cat([sel_ok.sum(dim=1), n_min]).to(torch.int32)
     return torch.cat([meta] + planes)

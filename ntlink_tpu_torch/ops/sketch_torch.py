@@ -85,30 +85,59 @@ def finish_hash(can: torch.Tensor, k: int) -> torch.Tensor:
     return t ^ shr(t, MULTISHIFT)
 
 
+@functools.lru_cache(maxsize=None)
+def _byte_tables(k: int):
+    """(fwd, rev) lists of ceil(k/4) 256-entry int64 tables: table j maps
+    the byte of bases 4j..4j+3 of a k-mer (base 4j+t in bits 2t) to the XOR
+    of those bases' srol terms; bases past k-1 do not count."""
+    out = []
+    for tab in _tables(k):
+        groups = []
+        for j in range(0, k, 4):
+            n = min(4, k - j)
+            row = []
+            for code in range(256):
+                v = 0
+                for t in range(n):
+                    v ^= tab[j + t][(code >> (2 * t)) & 3]
+                row.append(v)
+            groups.append(row)
+        out.append(groups)
+    return out
+
+
 def kmer_hashes(codes: torch.Tensor, k: int):
     """Forward and reverse-complement ntHash2 of the k-mer starting at
     every column: (fh, rh) (B, L) int64, right on columns [0, L-k]; the
-    columns past L-k hold partial sums."""
+    columns past L-k are 0. Four bases at a time: one byte per column and
+    one 256-entry table lookup per 4 bases of the k-mer."""
     B, L = codes.shape
     M = L - k + 1
     fh = torch.zeros((B, L), dtype=torch.int64, device=codes.device)
     rh = torch.zeros_like(fh)
     if M <= 0:
         return fh, rh
-    fwd_tab, rev_tab = (
-        torch.tensor(t, dtype=torch.int64, device=codes.device)
-        for t in _tables(k)
+    c = torch.cat([
+        codes.to(torch.int64),
+        torch.zeros((B, 3), dtype=torch.int64, device=codes.device),
+    ], dim=1)
+    byte = c[:, :L] | (c[:, 1 : L + 1] << 2) | (c[:, 2 : L + 2] << 4) | (
+        c[:, 3 : L + 3] << 6
     )
-    c = codes.to(torch.int64)
-    for j in range(k):
-        cj = c[:, j : j + M]
-        fh[:, :M] ^= fwd_tab[j][cj]
-        rh[:, :M] ^= rev_tab[j][cj]
+    fwd_tabs, rev_tabs = (
+        torch.tensor(t, dtype=torch.int64, device=codes.device)
+        for t in _byte_tables(k)
+    )
+    for j in range(fwd_tabs.shape[0]):
+        bj = byte[:, 4 * j : 4 * j + M]
+        fh[:, :M] ^= fwd_tabs[j][bj]
+        rh[:, :M] ^= rev_tabs[j][bj]
     return fh, rh
 
 
 def _shift_left(x: torch.Tensor, o: int, fill: int) -> torch.Tensor:
     """x[:, i] <- x[:, i+o], tail filled."""
+    o = min(o, x.shape[1])
     tail = torch.full((x.shape[0], o), fill, dtype=x.dtype, device=x.device)
     return torch.cat([x[:, o:], tail], dim=1)
 
@@ -128,18 +157,34 @@ def sketch_rows_ref(codes: torch.Tensor, lengths: torch.Tensor, k: int,
     with NW = max(L-k-w+2, 0). The key of column p is `can`, or all ones
     where p > len-k. `can` and `fwd` are right on columns [0, len-k].
     """
-    B, L = codes.shape
-    dev = codes.device
-    NW = max(L - k - w + 2, 0)
+    L = codes.shape[1]
     fh, rh = kmer_hashes(codes, k)
     can = fh + rh  # wraps mod 2^64
     fwd = ~u64_lt(rh, fh)
     lengths = lengths.to(torch.int64)
-    pos = torch.arange(L, device=dev)
-    invalid = pos[None, :] > (lengths - k)[:, None]
+    invalid = (
+        torch.arange(L, device=codes.device)[None, :]
+        > (lengths - k)[:, None]
+    )
+    winner, emit = _windows(
+        torch.where(invalid, ALL_ONES, can)[:, : max(L - k + 1, 0)],
+        lengths - k + 1, w,
+    )
+    return can, fwd, winner.to(torch.int32), emit
+
+
+def _windows(key: torch.Tensor, n_kmers: torch.Tensor, w: int):
+    """Leftmost argmin of each w-window of the (B, M) uint64 k-mer keys
+    (int64 bit patterns) and the emit mask: the winner differs from the
+    previous window's, the window lies inside the row's first `n_kmers`
+    keys and its key's high half is not all ones. Returns (winner (B, NW)
+    int64, emit (B, NW) bool), NW = max(M-w+1, 0)."""
+    B, L = key.shape
+    dev = key.device
+    NW = max(L - w + 1, 0)
     # signed view of the unsigned key order: flip the sign bit once
-    key = torch.where(invalid, ALL_ONES, can) ^ SIGN
-    idx = pos.expand(B, L)
+    key = key ^ SIGN
+    idx = torch.arange(L, device=dev).expand(B, L)
     top = (1 << 63) - 1  # all ones, sign-flipped
     span = 1
     while span * 2 <= w:
@@ -159,11 +204,53 @@ def sketch_rows_ref(codes: torch.Tensor, lengths: torch.Tensor, k: int,
         [torch.full((B, 1), -1, dtype=winner.dtype, device=dev), winner],
         dim=1,
     )[:, :NW]
-    n_win = torch.clamp(lengths - k - w + 2, min=0)
+    n_win = torch.clamp(n_kmers - w + 1, min=0)
     wpos = torch.arange(NW, device=dev)
     emit = (
         (winner != prev)
         & (wpos[None, :] < n_win[:, None])
         & (shr(win_key, 32) != 0xFFFFFFFF)
     )
-    return can, fwd, winner.to(torch.int32), emit
+    return winner, emit
+
+
+def compact_windows(can: torch.Tensor, nmask: torch.Tensor,
+                    lengths: torch.Tensor, k: int, w: int):
+    """Windows of rows with non-ACGT bases (``sketch_batch_kernel(...,
+    compact_invalid=True)``, sketch_jax.py:247-336): minimizer windows run
+    over the sequence of valid k-mers, spanning N gaps, and a valid stretch
+    shorter than w emits nothing.
+
+    can: (B, L) int64 canonical hashes, right on every k-mer that covers no
+    non-ACGT base (the sketch kernel's plane over the rows with N cleaned
+    to A); nmask: (B, L) bool, True at non-ACGT bases; lengths: (B,).
+    Returns (winner (B, NW) int32 original columns, emit (B, NW) bool),
+    NW = max(L-k-w+2, 0). A stable partition moves the valid k-mers to the
+    row front (cumsum + scatter), the window minimum runs over that
+    compacted row, and the winners map back to their columns."""
+    B, L = can.shape
+    dev = can.device
+    pos = torch.arange(L, device=dev)
+    # k-mers covering a non-ACGT base: N count in [p, p+k) from a cumsum
+    cs = torch.cat(
+        [torch.zeros((B, 1), dtype=torch.int64, device=dev),
+         nmask.to(torch.int64).cumsum(dim=1)], dim=1,
+    )
+    ends = (pos + k).clamp(max=L).expand(B, L)
+    bad = cs.gather(1, ends) - cs[:, :L] > 0
+    invalid = bad | (pos[None, :] > (lengths.to(torch.int64) - k)[:, None])
+    valid = ~invalid
+    n_kmers = valid.sum(dim=1)
+    tgt = torch.where(
+        valid,
+        valid.to(torch.int64).cumsum(dim=1) - 1,
+        invalid.to(torch.int64).cumsum(dim=1) - 1 + n_kmers[:, None],
+    )
+    key = torch.empty_like(can).scatter_(
+        1, tgt, torch.where(invalid, ALL_ONES, can)
+    )
+    valid_idx = torch.empty((B, L), dtype=torch.int64, device=dev).scatter_(
+        1, tgt, pos.expand(B, L)
+    )
+    winner, emit = _windows(key[:, : max(L - k + 1, 0)], n_kmers, w)
+    return valid_idx.gather(1, winner).to(torch.int32), emit

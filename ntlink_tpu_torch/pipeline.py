@@ -1,11 +1,16 @@
-"""The `pair` stage driven through the PyTorch mapper.
+"""The `pair` stage driven through the PyTorch sketcher and mapper.
 
-Counterpart of ``ntlink_tpu/pipeline.py::pair_stage`` (:492-589). It writes
-the same artifacts under the same names (``<prefix>.n<n>.scaffold.dot``,
+Counterpart of ``ntlink_tpu/pipeline.py::pair_stage`` (:492-589) on one
+device. It writes the same artifacts under the same names
+(``<target>.k<k>.w<w>.tsv``, ``<prefix>.n<n>.scaffold.dot``,
 ``.verbose_mapping.tsv``, ``.pairs.tsv``, ``.paf``) and reuses the JAX
-package's host stages as they are: the native C contig sketch, the contig
-index, `map_reads` with its C chaining and rendering, the pair tally and the
-graph writer. Only the read mapper differs: `device_map.TorchMapper`.
+package's host stages as they are: the TSV writer, the contig index,
+`map_reads` with its C chaining and rendering, the pair tally and the graph
+writer. The device work is the port's: the contig sketch
+(`sketch.TorchSketcher`) and the read mapper (`device_map.TorchMapper`),
+which chains on the device and ships O(runs) payloads under the same gates
+as ``DeviceMapper`` (`_prechain_args`; runs only without verbose or PAF
+output).
 """
 from __future__ import annotations
 
@@ -18,19 +23,23 @@ from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.pairs import tally_from_checkpoint
 from ntlink_tpu.pipeline import (
     _is_fresh,
-    ensure_contig_sketch_tsv,
+    _prechain_args,
     log,
     map_reads,
     read_scaffold_lengths,
 )
+from ntlink_tpu.sketch import sketch_fasta_to_tsv
 
 from .device_map import TorchMapper
+from .sketch import TorchSketcher
 
 
-#: the TorchMapper of the latest `pair_stage` that mapped reads, for callers
-#: of the CLI that read its counts (`host_fallbacks`, `device_reads`,
-#: `batches_by_pad`, `stream_seconds`)
+#: the TorchMapper of the latest `pair_stage` that mapped reads, and the
+#: TorchSketcher of the latest contig sketch, for callers of the CLI that
+#: read their counts (`host_fallbacks`, `device_reads` / `device_rows`,
+#: `batches_by_pad`, `stream_seconds`, ...)
 last_mapper = None
+last_sketcher = None
 
 
 class NotPorted(ValueError):
@@ -49,12 +58,36 @@ def check_supported(cfg: ScaffoldConfig) -> None:
         raise NotPorted("not yet ported: multi-process runs")
 
 
+def requested_modes(cfg: ScaffoldConfig):
+    """(prechain, runs_only) as the knobs ask for them; the mapper turns
+    them on when its gates hold as well (a chain module, at most
+    CHAIN_MAX_CONTIGS contigs)."""
+    prechain = not (cfg.repeats or cfg.sensitive or cfg.x != 0)
+    return prechain, prechain and not (cfg.verbose or cfg.paf)
+
+
+def ensure_contig_sketch_tsv(cfg: ScaffoldConfig, k: int, w: int,
+                             device=None) -> str:
+    """Sketch the target assembly on the device to the reference's TSV
+    artifact (``ntlink_tpu.pipeline.ensure_contig_sketch_tsv``, :42-57);
+    a fresh, non-empty TSV is reused."""
+    global last_sketcher
+    out = f"{cfg.target}.k{k}.w{w}.tsv"
+    if _is_fresh(out, cfg.target) and os.path.getsize(out) > 0:
+        log("Reusing sketch", out)
+        return out
+    log("Sketching", cfg.target, f"(k={k}, w={w})")
+    last_sketcher = TorchSketcher(device)
+    sketch_fasta_to_tsv(cfg.target, out, k, w, backend=last_sketcher)
+    return out
+
+
 def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
     """Mapping + scaffold-graph stage. Returns the DOT artifact path."""
     global last_mapper
     check_supported(cfg)
-    # host stages run exactly as ntlink_tpu's backend=numpy path: the
-    # contig sketch is the native C sketcher, never the JAX one
+    # map_reads' own mapper choice is bypassed (the mapper is passed in);
+    # backend=numpy keeps it from the hybrid split
     host_cfg = dataclasses.replace(cfg, backend="numpy")
     prefix = cfg.resolved_prefix()
     dot_path = f"{prefix}.n{cfg.n}.scaffold.dot"
@@ -79,12 +112,14 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
         log("Found mapping checkpoint", ckpt, "- bypassing read mapping")
         tally = tally_from_checkpoint(ckpt, contig_lengths, cfg.k, cfg.f)
     else:
-        tsv = ensure_contig_sketch_tsv(host_cfg, cfg.k, cfg.w)
+        tsv = ensure_contig_sketch_tsv(cfg, cfg.k, cfg.w, device=device)
         log("Loading contig index", tsv)
         index = ContigIndex.from_tsv(tsv)
         log("Index size:", len(index))
         mapper = TorchMapper(
-            index, cfg.k, cfg.w, batch_bases=cfg.batch_bases, device=device
+            index, cfg.k, cfg.w, batch_bases=cfg.batch_bases, device=device,
+            prechain=_prechain_args(cfg, index, contig_lengths),
+            runs_only=not (cfg.verbose or cfg.paf),
         )
         last_mapper = mapper
         tally = map_reads(

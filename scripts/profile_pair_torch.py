@@ -3,13 +3,14 @@
     python3 scripts/profile_pair_torch.py
 
 Writes `chip_smoke.py`'s synthetic dataset (C. elegans scale) to a
-temporary directory and runs the port's `pair` through its CLI twice, each
-in a fresh directory: once to warm up (kernel build, allocator), then once
-under `torch.profiler`. Prints each run's stage and mapping-stream wall
-seconds, the profiled run's device self time (kernels and copies, summed as
-the profiler's own table total) with its share of that run's mapping stream,
-and the profiler's table sorted by device time. Exits 1 without a CUDA
-device.
+temporary directory and runs the port's `pair` through its CLI three times,
+each in a fresh directory (so each sketches the contigs too): once to warm
+up (kernel build, allocator), then the default run (verbose, prechained)
+and the lean run (verbose=False, runs-only), each under `torch.profiler`.
+Prints each run's stage, contig-sketch and mapping-stream wall seconds, each
+profiled run's device self time (kernels and copies, summed as the
+profiler's own table total) with its share of the stage, and the
+profiler's table sorted by device time. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -28,14 +29,14 @@ import chip_smoke  # noqa: E402  (the dataset and the CLI's argv)
 from ntlink_tpu_torch import cli, pipeline  # noqa: E402
 
 
-def run_pair(root: str, name: str) -> float:
+def run_pair(root: str, name: str, argv) -> float:
     """The port's `pair` in a fresh directory `root/name`; wall seconds."""
     d = os.path.join(root, name)
     os.makedirs(d)
     for f in ("target.fa", "reads.fa"):
         os.symlink(os.path.join(root, "data", f), os.path.join(d, f))
     t0 = time.perf_counter()
-    rc = chip_smoke.run_in(d, lambda: cli.main(chip_smoke.PAIR_ARGV))
+    rc = chip_smoke.run_in(d, lambda: cli.main(argv))
     torch.cuda.synchronize()
     if rc != 0:
         raise SystemExit(f"pair exited {rc}")
@@ -51,33 +52,39 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    runs = (("warm-up", chip_smoke.PAIR_ARGV),
+            ("default", chip_smoke.PAIR_ARGV),
+            ("lean", chip_smoke.LEAN_ARGV))
     with tempfile.TemporaryDirectory(prefix="ntlink_profile_") as root:
         os.makedirs(os.path.join(root, "data"))
         chip_smoke.write_dataset(os.path.join(root, "data"))
-        walls = {}
-        for name in ("warm-up", "profiled"):
-            if name == "profiled":
+        for name, argv in runs:
+            prof = None
+            if name == "warm-up":
+                stage_s = run_pair(root, name, argv)
+            else:
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
-                    stage_s = run_pair(root, name)
-            else:
-                stage_s = run_pair(root, name)
+                    stage_s = run_pair(root, name, argv)
+            sketch_s = pipeline.last_sketcher.stream_seconds
             stream_s = pipeline.last_mapper.stream_seconds
-            walls[name] = (stage_s, stream_s)
             print(f"profile: {name} run: pair stage {stage_s:.3f} s, "
-                  f"mapping stream {stream_s:.3f} s", flush=True)
-    events = prof.key_averages()
-    device_us = sum(
-        e.self_device_time_total for e in events
-        if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-    )
-    stage_s, stream_s = walls["profiled"]
-    print(f"profile: {smi}: profiled run's device self time "
-          f"{device_us / 1e3:.3f} ms = {device_us / 1e6 / stream_s:.2%} of "
-          f"its mapping stream ({stream_s:.3f} s), "
-          f"{device_us / 1e6 / stage_s:.2%} of its pair stage "
-          f"({stage_s:.3f} s)")
-    print(events.table(sort_by="self_device_time_total", row_limit=25))
+                  f"contig sketch {sketch_s:.3f} s, mapping stream "
+                  f"{stream_s:.3f} s", flush=True)
+            if prof is None:
+                continue
+            events = prof.key_averages()
+            device_us = sum(
+                e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA
+                and not e.is_user_annotation
+            )
+            print(f"profile: {smi}: {name} run's device self time "
+                  f"{device_us / 1e3:.3f} ms = "
+                  f"{device_us / 1e6 / stage_s:.2%} of its pair stage "
+                  f"({stage_s:.3f} s)")
+            print(events.table(sort_by="self_device_time_total",
+                               row_limit=20))
     return 0
 
 

@@ -1,4 +1,5 @@
-"""The Hopper sketch kernel against its plain version, on the card.
+"""The Hopper sketch kernel against its plain version, and the steps of N
+batches against the CPU's, on the card.
 
 This file imports no JAX (nor does anything it imports), so it also runs on
 a machine without JAX, where ``tests/conftest.py`` cannot load:
@@ -47,3 +48,54 @@ def test_kernel_matches_plain_version_on_card(k, w, L):
     assert torch.equal(fwd[valid], r_fwd[valid])
     assert torch.equal(winner, r_win)
     assert torch.equal(emit, r_emit)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["sketch", "anchors", "runs"])
+def test_steps_with_n_rows_on_card_match_cpu(mode):
+    """The sketch step and the mapping step (chained, per-anchor and
+    runs) on an N batch: the card's payload equals the CPU's (plain
+    version) bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu.index import ContigIndex
+    from ntlink_tpu.ops import nthash_np
+    from ntlink_tpu.stream_pipeline import split_n_rows
+    from ntlink_tpu_torch import mapping_step as ms
+
+    k, w, L, B = 32, 100, 16384, 16
+    rng = np.random.default_rng(7)
+    contigs = [rng.integers(0, 4, 200_000).astype(np.uint8) for _ in range(3)]
+    rows, lengths = [], _edge_lengths(rng, k, w, B, L)
+    for r in range(B):
+        s = int(rng.integers(0, 200_000 - L))
+        read = contigs[r % 3][s : s + int(lengths[r])].copy()
+        if len(read):
+            read[rng.integers(0, len(read), 3 * (r % 4))] = 4
+        rows.append(read)
+    clean, nmask = split_n_rows(rows, B, L)
+    codes = np.zeros((B, L), np.uint8)
+    for r, c in enumerate(clean):
+        codes[r, : len(c)] = c
+    args = [torch.from_numpy(ms.pack_codes(codes)),
+            torch.from_numpy(lengths), torch.from_numpy(nmask)]
+    outs = []
+    for dev in ("cpu", "cuda"):
+        packed, lens, nm = (a.to(dev) for a in args)
+        if mode == "sketch":
+            out = ms.sketch_step(packed, lens, k, w, L, 1024, nmask=nm)
+        else:
+            index = ContigIndex.from_sketches(
+                (f"c{i}", nthash_np.sketch_codes(c, k, w))
+                for i, c in enumerate(contigs)
+            )
+            out = ms.mapping_step(
+                packed, lens, ms.DeviceIndex.from_contig_index(index, dev),
+                k, w, L, 1024, nmask=nm,
+                clen=torch.full((3,), 200_000, dtype=torch.int32,
+                                device=dev),
+                z=1000, runs=mode == "runs",
+            )
+        outs.append(out.cpu())
+    assert torch.equal(outs[0], outs[1])
+    assert int(outs[0][:B].sum()) > 0

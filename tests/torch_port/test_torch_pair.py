@@ -1,7 +1,8 @@
-"""The port's `pair` stage end to end on the CPU: the DOT, pairs.tsv and
-verbose_mapping artifacts are byte-identical to ntlink_tpu's pair stage
-under its JAX and NumPy backends, the port never loads JAX, and its CLI
-refuses to run without a CUDA device."""
+"""The port's `pair` stage end to end on the CPU: the contig sketch TSV, DOT,
+pairs.tsv and verbose_mapping artifacts are byte-identical to ntlink_tpu's
+pair stage under its JAX and NumPy backends, in the default (verbose,
+prechained) run and in the lean (runs-only) run; the port never loads JAX,
+and its CLI refuses to run without a CUDA device."""
 import filecmp
 import os
 import subprocess
@@ -12,6 +13,7 @@ import pytest
 
 from ntlink_tpu.config import ScaffoldConfig
 from ntlink_tpu.pipeline import pair_stage as jax_pair_stage
+from ntlink_tpu_torch import pipeline
 from ntlink_tpu_torch.pipeline import NotPorted, pair_stage
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
@@ -19,17 +21,21 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 BASES = np.array(list("ACGT"))
 PREFIX = "target.fa.k32.w100.z1000"
 ARTIFACTS = (".n1.scaffold.dot", ".pairs.tsv", ".verbose_mapping.tsv")
+CONTIG_TSV = "target.fa.k32.w100.tsv"
 
 
 def _write_dataset(d, seed=11):
     """A random genome cut into contigs with 500 b gaps between them, and
     reads sampled across it with 3% substitutions, half reverse-complemented
     (tests/test_synthetic_truth.py:18-44, smaller), plus a sub-k read and an
-    N-containing one."""
+    N-containing one. contig1 holds a run of 100 N in its middle, so the
+    reads that cross it carry N too."""
     rng = np.random.default_rng(seed)
     pieces, contigs = [], []
     for i in range(4):
         seq = "".join(BASES[rng.integers(0, 4, 60_000)])
+        if i == 1:
+            seq = seq[:30_000] + "N" * 100 + seq[30_100:]
         contigs.append((f"contig{i}", seq))
         pieces.append(seq)
         pieces.append("".join(BASES[rng.integers(0, 4, 500)]))
@@ -69,16 +75,20 @@ def test_pair_artifacts_match_jax_package(tmp_path, monkeypatch):
         _write_dataset(tmp_path / side)
     monkeypatch.chdir(tmp_path / "torch")
     pair_stage(_cfg(batch_bases=200_000), device="cpu")
+    last_mapper, last_sketcher = pipeline.last_mapper, pipeline.last_sketcher
     for backend in ("jax", "numpy"):
         monkeypatch.chdir(tmp_path / backend)
         jax_pair_stage(_cfg(backend=backend, batch_bases=2_000_000, t=1))
-    for art in ARTIFACTS:
-        port = tmp_path / "torch" / f"{PREFIX}{art}"
+    for art in [PREFIX + a for a in ARTIFACTS] + [CONTIG_TSV]:
+        port = tmp_path / "torch" / art
         assert os.path.getsize(port) > 0, art
         for backend in ("jax", "numpy"):
             assert filecmp.cmp(
-                port, tmp_path / backend / f"{PREFIX}{art}", shallow=False
+                port, tmp_path / backend / art, shallow=False
             ), (art, backend)
+    assert last_mapper.prechained and not last_mapper.runs_only
+    assert any(has_n for _, has_n in last_mapper.batches_by_pad)
+    assert any(has_n for _, has_n in last_sketcher.batches_by_pad)
     # a rerun without the DOT tallies from the verbose mapping checkpoint
     # (no device work) and writes the same bytes
     monkeypatch.chdir(tmp_path / "torch")
@@ -92,16 +102,44 @@ def test_pair_artifacts_match_jax_package(tmp_path, monkeypatch):
         ), art
 
 
+def test_pair_runs_only_matches_jax_package(tmp_path, monkeypatch):
+    """verbose=False: the port's mapper ships O(runs) payloads (prechained,
+    runs_only), ntlink_tpu's backend=jax DeviceMapper does too, and the
+    NumPy backend chains every read on the host; DOT, pairs.tsv and the
+    contig TSV are the same bytes on all three."""
+    for side in ("torch", "jax", "numpy"):
+        _write_dataset(tmp_path / side, seed=12)
+    monkeypatch.chdir(tmp_path / "torch")
+    pair_stage(_cfg(batch_bases=200_000, verbose=False), device="cpu")
+    assert pipeline.last_mapper.prechained and pipeline.last_mapper.runs_only
+    for backend in ("jax", "numpy"):
+        monkeypatch.chdir(tmp_path / backend)
+        jax_pair_stage(_cfg(backend=backend, batch_bases=2_000_000, t=1,
+                            verbose=False))
+    for art in [PREFIX + a for a in ARTIFACTS[:2]] + [CONTIG_TSV]:
+        port = tmp_path / "torch" / art
+        assert os.path.getsize(port) > 0, art
+        for backend in ("jax", "numpy"):
+            assert filecmp.cmp(
+                port, tmp_path / backend / art, shallow=False
+            ), (art, backend)
+    assert not (tmp_path / "torch" / f"{PREFIX}{ARTIFACTS[2]}").exists()
+
+
 def test_port_never_imports_jax(tmp_path):
     """The test process has JAX loaded (tests/conftest.py), so a fresh
-    interpreter runs the port's CPU pair path and reports."""
+    interpreter runs the port's CPU pair path, the default run and the
+    runs-only one, and reports."""
     _write_dataset(tmp_path)
     code = (
         "import sys\n"
         "from ntlink_tpu.config import ScaffoldConfig\n"
-        "from ntlink_tpu_torch.pipeline import pair_stage\n"
-        "pair_stage(ScaffoldConfig(target='target.fa', reads=['reads.fa'],"
-        " pairs_tsv=True), device='cpu')\n"
+        "from ntlink_tpu_torch import pipeline\n"
+        "pipeline.pair_stage(ScaffoldConfig(target='target.fa',"
+        " reads=['reads.fa'], pairs_tsv=True), device='cpu')\n"
+        "pipeline.pair_stage(ScaffoldConfig(target='target.fa',"
+        " reads=['reads.fa'], verbose=False, prefix='lean'), device='cpu')\n"
+        "print('RUNS_ONLY', pipeline.last_mapper.runs_only)\n"
         "print('JAX_LOADED', 'jax' in sys.modules)\n"
     )
     res = subprocess.run(
@@ -110,7 +148,9 @@ def test_port_never_imports_jax(tmp_path):
     )
     assert res.returncode == 0, res.stderr
     assert "JAX_LOADED False" in res.stdout
+    assert "RUNS_ONLY True" in res.stdout
     assert (tmp_path / f"{PREFIX}.n1.scaffold.dot").exists()
+    assert (tmp_path / "lean.n1.scaffold.dot").exists()
 
 
 def test_cli_without_cuda_exits_nonzero(tmp_path):
