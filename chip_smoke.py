@@ -2,17 +2,25 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernel from the checkout and holds it against its
-plain PyTorch version on the batches the main path gives it (phase 1: the
-mapper's batch of bases at pads 1024 .. 2^21, and the contig sketcher's
-8 x 2^21). Then it drives the `pair` stage through the port's CLI on a
-synthetic draft at C. elegans scale with N gaps and two contigs past 2^21
-bases (phase 2): 2a, the default run (contig sketch on the card, chaining
-on the card, per-anchor payload), held byte for byte against the same
-stage on the CPU, where every batch goes through the kernel's plain
+Builds the port's CUDA kernels from the checkout and holds each against its
+plain PyTorch version. Phase 1: the sketch kernel on the batches the main
+path gives it (the mapper's batch of bases at pads 1024 .. 2^21, and the
+contig sketcher's 8 x 2^21). Phase 1b: the integer peak probe (the
+counterpart of bench.py's Pallas microkernel) at (256, 1024), bit for bit,
+then its rates by width. Then it drives the port's CLI on a synthetic
+draft at C. elegans scale with N gaps and two contigs past 2^21 bases
+(phase 2): 2a, the default `pair` run (contig sketch on the card,
+chaining on the card, per-anchor payload), held byte for byte against the
+same stage on the CPU, where every batch goes through the kernel's plain
 version; 2b, the lean run (verbose=False: O(runs) payload), held against
 2a; 2c, the host-chained path (sensitive=True) on 2,000 reads, card vs
-CPU. Every phase prints a line; any failure exits non-zero before the last
+CPU. Phase 3: backend=hybrid t=4 (card and host C path at once), verbose
+and lean, held against 2a and 2b. Phase 4: repeats=True (hash planes) on
+2,000 reads, card vs CPU. Phase 5: `run_rounds_gaps rounds=2` on a smaller
+draft cut the same way, card vs CPU, every file of the run; round 2 must
+launch no sketch kernel. Phase 6: the kernel bench
+(``python -m ntlink_tpu_torch.kernel_bench``), its JSON on a line of its
+own. Every phase prints a line; any failure exits non-zero before the last
 line, which is the JSON result. Without a CUDA device it exits 1.
 """
 from __future__ import annotations
@@ -24,14 +32,16 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
-from ntlink_tpu_torch import cli, pipeline
+from ntlink_tpu_torch import cli, kernel_bench, pipeline
 from ntlink_tpu_torch.device_map import batch_rows
-from ntlink_tpu_torch.ops import build, sketch_cuda, sketch_torch
-from ntlink_tpu_torch.sketch import TorchSketcher
+from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
+from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
+from ntlink_tpu_torch.sketch import TorchHybridSketcher, TorchSketcher
 
 SEED = 20261016
 KW_GRID = [(32, 100), (24, 250), (15, 5), (40, 100)]
@@ -44,6 +54,9 @@ KERNEL_SOURCE = "ntlink_tpu_torch/csrc/sketch.cu"
 # both Pallas entry points (single tile and chunked) map onto one kernel
 REPLACES = "ntlink_tpu/ops/sketch_pallas.py:260"
 ALSO_REPLACES = "ntlink_tpu/ops/sketch_pallas.py:156"
+PROBE_SOURCE = "ntlink_tpu_torch/csrc/alu_peak.cu"
+PROBE_REPLACES = "bench.py:273"
+PROBE_ITERS = (1, 7, 64)
 
 # phase 2: a synthetic genome at C. elegans scale
 N_CONTIGS, CONTIG_LEN, GAP = 2000, 50_000, 500
@@ -61,6 +74,13 @@ SENS_ARGV = ["pair", "target=target.fa", "reads=reads2k.fa", "k=32",
 PREFIX = "target.fa.k32.w100.z1000"
 CONTIG_TSV = "target.fa.k32.w100.tsv"
 ARTIFACTS = (".n1.scaffold.dot", ".pairs.tsv", ".verbose_mapping.tsv")
+HYBRID_ARGV = PAIR_ARGV + ["backend=hybrid", "t=4"]
+REPEATS_ARGV = ["pair", "target=target.fa", "reads=reads2k.fa", "k=32",
+                "w=100", "z=1000", "pairs_tsv=True", "repeats=True"]
+# phase 5: a smaller draft cut the same way, scaffolded in two rounds
+SMALL = dict(n_contigs=500, n_long=1, n_gapped=50, n_reads=6_000)
+ROUNDS_ARGV = ["run_rounds_gaps", "target=target.fa", "reads=reads.fa",
+               "k=32", "w=100", "z=1000", "rounds=2"]
 
 
 def log(*parts) -> None:
@@ -145,10 +165,13 @@ def phase_environment() -> str:
     log(f"phase 0: torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, "
         f"device {torch.cuda.get_device_name(0)}")
+    # one nvcc per source, all started together
     t0 = time.perf_counter()
-    build.build("sketch")
-    log(f"phase 0: nvcc build of {KERNEL_SOURCE}: "
-        f"{build.build_seconds['sketch']:.2f} s compile "
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        list(pool.map(build.build, ("sketch", "alu_peak")))
+    log(f"phase 0: nvcc builds of {KERNEL_SOURCE}: "
+        f"{build.build_seconds['sketch']:.2f} s, of {PROBE_SOURCE}: "
+        f"{build.build_seconds['alu_peak']:.2f} s compile "
         f"({time.perf_counter() - t0:.2f} s wall)")
     return smi
 
@@ -164,7 +187,7 @@ def batch_shapes(batch_bases: int):
 
 def phase_kernel(dev) -> dict:
     """Kernel vs plain version at the main path's batch shapes."""
-    batch_bases = cli.pair_config(PAIR_ARGV).batch_bases
+    batch_bases = cli.parse(PAIR_ARGV)[1].batch_bases
     rng = np.random.default_rng(SEED)
     worst = 0.0
     times = {}
@@ -200,20 +223,23 @@ def phase_kernel(dev) -> dict:
             "contig_batch_ms": c_ms, "contig_batch_plain_ms": c_plain_ms}
 
 
-def write_dataset(d: str) -> None:
-    """2,000 contigs of 50 kb and 2 of 3 Mb cut from a 107 Mbp random
-    genome, 500 b gaps left out of the draft, a run of 100 N in the middle
-    of 200 of the 50 kb contigs; 20,000 reads, log-normal lengths (median
-    12 kb, clipped to 1-150 kb) with 5% substitutions, half
+def write_dataset(d: str, n_contigs: int = N_CONTIGS, n_long: int = N_LONG,
+                  n_gapped: int = N_GAPPED, n_reads: int = N_READS,
+                  label: str = "phase 2") -> None:
+    """By default 2,000 contigs of 50 kb and 2 of 3 Mb cut from a 107 Mbp
+    random genome, 500 b gaps left out of the draft, a run of 100 N in the
+    middle of 200 of the 50 kb contigs; 20,000 reads, log-normal lengths
+    (median 12 kb, clipped to 1-150 kb) with 5% substitutions, half
     reverse-complemented, one N in 1% of them, then 2 sub-k reads; and
     reads2k.fa, the first 2,000 reads. Coverage is ~3x, cut from the usual
-    20-40x to keep the smoke short."""
+    20-40x to keep the smoke short. The counts scale the draft down the
+    same way (phase 5)."""
     rng = np.random.default_rng(SEED + 1)
     ascii_ = np.frombuffer(b"ACGTN", np.uint8)
-    lens = [CONTIG_LEN] * N_CONTIGS + [LONG_LEN] * N_LONG
+    lens = [CONTIG_LEN] * n_contigs + [LONG_LEN] * n_long
     starts = np.concatenate([[0], np.cumsum(np.asarray(lens) + GAP)])
     genome = rng.integers(0, 4, int(starts[-1]) - GAP, dtype=np.uint8)
-    gapped = set(rng.choice(N_CONTIGS, N_GAPPED, replace=False).tolist())
+    gapped = set(rng.choice(n_contigs, n_gapped, replace=False).tolist())
     with open(os.path.join(d, "target.fa"), "wb") as fh:
         for i, n in enumerate(lens):
             seq = genome[starts[i] : starts[i] + n].copy()
@@ -222,14 +248,14 @@ def write_dataset(d: str) -> None:
                 seq[mid : mid + N_RUN] = 4
             fh.write(b">contig%d\n" % i + ascii_[seq].tobytes() + b"\n")
     rlens = np.clip(
-        np.exp(rng.normal(np.log(READ_MEDIAN), 0.7, N_READS)),
+        np.exp(rng.normal(np.log(READ_MEDIAN), 0.7, n_reads)),
         READ_MIN, READ_MAX,
     ).astype(np.int64)
     rstarts = rng.integers(0, len(genome) - rlens)
-    with_n = rng.random(N_READS) < N_READ_SHARE
+    with_n = rng.random(n_reads) < N_READ_SHARE
     with open(os.path.join(d, "reads.fa"), "wb") as fh, \
             open(os.path.join(d, "reads2k.fa"), "wb") as fh2k:
-        for r in range(N_READS):
+        for r in range(n_reads):
             read = genome[rstarts[r] : rstarts[r] + rlens[r]].copy()
             sub = rng.random(rlens[r]) < SUB_RATE
             read[sub] = (read[sub] + rng.integers(1, 4, sub.sum())) % 4
@@ -243,9 +269,9 @@ def write_dataset(d: str) -> None:
                 fh2k.write(rec)
         for r in range(N_SUBK):
             fh.write(b">short%d\nACGTACGTAC\n" % r)
-    log(f"phase 2: dataset: {N_CONTIGS} contigs x {CONTIG_LEN} b "
-        f"({N_GAPPED} with {N_RUN} N) + {N_LONG} x {LONG_LEN} b; "
-        f"{N_READS} reads ({int(with_n.sum())} with an N) + {N_SUBK} sub-k, "
+    log(f"{label}: dataset: {n_contigs} contigs x {CONTIG_LEN} b "
+        f"({n_gapped} with {N_RUN} N) + {n_long} x {LONG_LEN} b; "
+        f"{n_reads} reads ({int(with_n.sum())} with an N) + {N_SUBK} sub-k, "
         f"{int(rlens.sum())} read bases "
         f"({rlens.sum() / sum(lens):.2f}x), longest {int(rlens.max())} b")
 
@@ -284,6 +310,8 @@ def card_pair(d: str, argv, dev, label: str):
     if launches == 0:
         fail(f"{label}: the main path launched no sketch kernel")
     mapper, sketcher = pipeline.last_mapper, pipeline.last_sketcher
+    # backend=hybrid: the card's share of the contig stream
+    card_sk = getattr(sketcher, "device_backend", sketcher)
     n = mapper.device_reads + mapper.host_fallbacks
     log(f"{label}: port pair on the card: {secs:.1f} s total; mapping {n} "
         f"reads in {mapper.stream_seconds:.3f} s = "
@@ -291,21 +319,21 @@ def card_pair(d: str, argv, dev, label: str):
         f"(prechained={mapper.prechained}, runs_only={mapper.runs_only}); "
         f"{launches} sketch kernel launches ({mapper.kernel_launches} read "
         f"mapping"
-        + (f", {sketcher.kernel_launches} contig sketch" if sketcher else "")
+        + (f", {card_sk.kernel_launches} contig sketch" if card_sk else "")
         + f"); read batches by (pad, has N) {mapper.batches_by_pad}; "
         f"{mapper.host_fallbacks} host-fallback reads")
-    if sketcher is not None:
+    if card_sk is not None:
         log(f"{label}: contig sketch on the card: "
-            f"{sketcher.stream_seconds:.3f} s; {sketcher.device_rows} device "
-            f"rows, {sketcher.chunked} chunked contigs, batches by (pad, has "
-            f"N) {sketcher.batches_by_pad}; {sketcher.host_fallbacks} "
+            f"{card_sk.stream_seconds:.3f} s; {card_sk.device_rows} device "
+            f"rows, {card_sk.chunked} chunked contigs, batches by (pad, has "
+            f"N) {card_sk.batches_by_pad}; {card_sk.host_fallbacks} "
             f"host-fallback rows")
     return mapper, sketcher, launches, secs
 
 
 def cpu_pair(d: str, argv, label: str) -> None:
     t0 = time.perf_counter()
-    run_in(d, lambda: pipeline.pair_stage(cli.pair_config(argv),
+    run_in(d, lambda: pipeline.pair_stage(cli.parse(argv)[1],
                                           device="cpu"))
     log(f"{label}: port pair on the CPU (plain version): "
         f"{time.perf_counter() - t0:.1f} s")
@@ -392,7 +420,177 @@ def phase_slice(dev) -> dict:
         same_bytes("phase 2c", sens_card, sens_cpu,
                    [PREFIX + a for a in ARTIFACTS])
         by_path["2c read mapping"] = mapper_c.kernel_launches
-    return {"launches": launches, "launches_by_path": by_path}
+
+        # 3: backend=hybrid t=4, the card and the host's C path at once, in
+        # fresh directories (each sketches the contigs); verbose vs 2a, lean
+        # vs 2b
+        hybrid = {}
+        for name, argv, ref_dir, arts in (
+            ("hybrid", HYBRID_ARGV, card, ARTIFACTS),
+            ("hybrid_lean", HYBRID_ARGV + ["verbose=False"], lean,
+             ARTIFACTS[:2]),
+        ):
+            label = f"phase 3 ({name})"
+            d = make_dir(root, name, inputs)
+            mapper_h, sketcher_h, _, secs = card_pair(d, argv, dev, label)
+            split = pipeline.last_hybrid
+            if split is None or not isinstance(sketcher_h,
+                                               TorchHybridSketcher):
+                fail(f"{label}: the run did not go through the hybrid path")
+            n = split.device_reads + split.host_reads
+            if n != n_reads:
+                fail(f"{label}: mapped {n} reads, expected {n_reads}")
+            if split.device_reads == 0:
+                fail(f"{label}: the card took no reads")
+            rate = n / pipeline.last_map_seconds
+            share = split.device_reads / n
+            n_seqs = sketcher_h.device_seqs + sketcher_h.host_seqs
+            sk_share = sketcher_h.device_seqs / n_seqs
+            log(f"{label}: mapping {n} reads in "
+                f"{pipeline.last_map_seconds:.3f} s = {rate:.1f} reads/s; "
+                f"card share {split.device_reads} reads ({100 * share:.1f}%), "
+                f"host {split.host_reads}; contig sketch: card "
+                f"{sketcher_h.device_seqs} of {n_seqs} contigs "
+                f"({100 * sk_share:.1f}%); {secs:.1f} s total")
+            same_bytes(label, ref_dir, d, [PREFIX + a for a in arts]
+                       + [CONTIG_TSV])
+            hybrid[name] = {"reads_per_s": rate, "device_share": share,
+                            "contig_device_share": sk_share}
+            by_path[f"3 {name}"] = (mapper_h.kernel_launches
+                                    + sketcher_h.device_backend.kernel_launches)
+
+        # 4: repeats=True (hash planes, the repeat filter before host
+        # chaining) on the first 2,000 reads, card vs CPU, on 2a's sketch
+        rep_card = make_dir(root, "rep_card", links)
+        mapper_r, _, _, _ = card_pair(rep_card, REPEATS_ARGV, dev, "phase 4")
+        if not mapper_r.with_hashes or mapper_r.prechained:
+            fail("4: repeats=True must ship hash planes and chain on the "
+                 "host")
+        rep_cpu = make_dir(root, "rep_cpu", links)
+        cpu_pair(rep_cpu, REPEATS_ARGV, "phase 4")
+        same_bytes("phase 4", rep_card, rep_cpu,
+                   [PREFIX + a for a in ARTIFACTS])
+        by_path["4 repeats"] = mapper_r.kernel_launches
+    return {"launches": launches, "launches_by_path": by_path,
+            "hybrid": hybrid}
+
+
+def same_tree(label: str, a_dir: str, b_dir: str, must_have) -> None:
+    """Both directories hold the same names, each symlink points at the
+    same name and each file holds the same bytes; `must_have` are there."""
+    names = sorted(os.listdir(a_dir))
+    if names != sorted(os.listdir(b_dir)):
+        fail(f"{label}: the runs left different files")
+    for name in must_have:
+        if name not in names:
+            fail(f"{label}: {name} is missing")
+    for name in names:
+        a, b = os.path.join(a_dir, name), os.path.join(b_dir, name)
+        if os.path.islink(a) or os.path.islink(b):
+            if os.readlink(a) != os.readlink(b):
+                fail(f"{label}: {name} links differ")
+            if os.path.isfile(a) and os.path.getsize(a) == 0:
+                fail(f"{label}: {name} is empty")
+        elif not filecmp.cmp(a, b, shallow=False):
+            fail(f"{label}: {name} differs")
+    log(f"{label}: {len(names)} names, card == CPU: "
+        + ", ".join(f"{n} ({os.path.getsize(os.path.join(a_dir, n))} B)"
+                    for n in must_have))
+
+
+def phase_rounds(dev) -> dict:
+    """`run_rounds_gaps rounds=2` on the card (the port's CLI) and on the
+    CPU, in two directories of the smaller draft."""
+    kwz = "k32.w100.z1000"
+    r1 = f"target.fa.{kwz}.ntLink.gap_fill.fa"
+    r2 = f"target.fa.{kwz}.ntLink.ntLink.gap_fill.fa"
+    must = [f"target.fa.{kwz}.ntLink.gap_fill.2rounds.fa", r1, r2,
+            f"{r1}.{kwz}.ntLink.scaffolds.gap_fill.fa",
+            f"{r1}.{kwz}.verbose_mapping.tsv"]
+    for rnd in (r1, r2):
+        must += [f"{rnd}.agp", f"{rnd}.verbose_mapping.tsv"]
+    with tempfile.TemporaryDirectory(prefix="ntlink_smoke_") as root:
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        write_dataset(data, label="phase 5", **SMALL)
+        inputs = [os.path.join(data, f) for f in ("target.fa", "reads.fa")]
+        card = make_dir(root, "card", inputs)
+        sketch_cuda.launches = 0
+        t0 = time.perf_counter()
+        rc = run_in(card, lambda: cli.main(ROUNDS_ARGV))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = sketch_cuda.launches
+        per_round = list(pipeline.round_launches)
+        if rc != 0:
+            fail(f"phase 5: port run_rounds_gaps exited {rc}")
+        if len(per_round) != 2 or per_round[0] == 0 or launches == 0:
+            fail(f"phase 5: round 1 launched no sketch kernel {per_round}")
+        if per_round[1] != 0:
+            fail(f"phase 5: round 2 launched {per_round[1]} sketch kernels")
+        log(f"phase 5: run_rounds_gaps rounds=2 on the card: {card_s:.1f} s; "
+            f"sketch kernel launches by round {per_round}")
+        cpu = make_dir(root, "cpu", inputs)
+        targets, cfg, rounds = cli.parse(ROUNDS_ARGV)
+        t0 = time.perf_counter()
+        run_in(cpu, lambda: pipeline.run_rounds(cfg, rounds, gap_fill=True,
+                                                device="cpu"))
+        cpu_s = time.perf_counter() - t0
+        log(f"phase 5: the same on the CPU (plain version): {cpu_s:.1f} s")
+        same_tree("phase 5", card, cpu, must)
+    return {"launches": launches, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def phase_probe(dev) -> dict:
+    """Phase 1b: the integer peak probe against its plain version on the
+    card, bit for bit, at the bench's (256, 1024) elements, then one
+    timing of each and the probe's rates by width."""
+    rng = np.random.default_rng(SEED + 2)
+    x = kernel_bench.probe_input(dev, rng)
+    worst = 0
+    for width in WIDTHS:
+        for iters in PROBE_ITERS:
+            out = alu_peak_cuda.alu_peak(x, iters, width)
+            ref = alu_peak_ref(x, iters, width)
+            err = int(((out.long() & 0xFFFFFFFF) - (ref.long() & 0xFFFFFFFF))
+                      .abs().max())
+            log(f"phase 1b: width={width} iters={iters}: max_abs_err={err}")
+            if err != 0:
+                fail(f"alu_peak != plain version at width={width} "
+                     f"iters={iters}")
+            worst = max(worst, err)
+    iters = PROBE_ITERS[-1]
+    ms = cuda_ms(lambda: alu_peak_cuda.alu_peak(x, iters, 32))
+    plain_ms = cuda_ms(lambda: alu_peak_ref(x, iters, 32))
+    log(f"phase 1b: (256, 1024) x {iters} iterations at width 32: kernel "
+        f"{ms:.3f} ms, plain version {plain_ms:.3f} ms (median of 10)")
+    rates = kernel_bench.alu_peak_rates(dev, rng)
+    for width in WIDTHS:
+        log(f"phase 1b: width {width}: {rates['gops'][width]:.1f} GOPS by "
+            f"source ops, {rates['sass_instr'][width]} SASS instructions "
+            f"per iteration = {rates['sass_ginstr'][width]:.1f} G instr/s; "
+            f"loop body {rates['sass_ops'][width]}")
+    return {"max_abs_err": float(worst), "ms": ms, "plain_ms": plain_ms,
+            "gops_by_width": rates["gops"]}
+
+
+def phase_bench(dev) -> dict:
+    """Phase 6: the port's kernel bench, with the probe's count set to 0
+    just before and read just after."""
+    alu_peak_cuda.launches = 0
+    sketch_cuda.launches = 0
+    out = kernel_bench.run(dev)
+    print(json.dumps(out), flush=True)
+    if not (out["sketch_equals_plain_on_card"]
+            and out["alu_peak_equals_plain_on_card"]):
+        fail("6: the kernel bench found a kernel unequal to its plain "
+             "version")
+    log(f"phase 6: sketch {out['sketch_cuda_gbase_per_s']:.2f} Gbase/s "
+        f"(2048 x 16384), {out['sketch_cuda_chunked_gbase_per_s']:.2f} "
+        f"Gbase/s (512 x 65536); int32 peak {out['int32_peak_gops']:.1f} "
+        f"GOPS at width {out['int32_best_width']}")
+    return {"alu_peak": alu_peak_cuda.launches,
+            "sketch_rows": sketch_cuda.launches}
 
 
 def main() -> int:
@@ -403,7 +601,12 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     kern = phase_kernel(dev)
+    probe = phase_probe(dev)
     counts = phase_slice(dev)
+    rounds = phase_rounds(dev)
+    bench = phase_bench(dev)
+    counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
+    counts["launches_by_path"]["6 kernel bench"] = bench["sketch_rows"]
     log(f"nvidia-smi: {smi}")
     print(json.dumps({"kernels": [{
         "name": "sketch_rows",
@@ -413,6 +616,14 @@ def main() -> int:
         "also_replaces": ALSO_REPLACES,
         **counts,
         **kern,
+    }, {
+        "name": "alu_peak",
+        "route": "cuda",
+        "source": PROBE_SOURCE,
+        "replaces": PROBE_REPLACES,
+        "launches": bench["alu_peak"],
+        "launches_by_path": {"6 kernel bench": bench["alu_peak"]},
+        **probe,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

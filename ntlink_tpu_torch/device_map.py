@@ -1,7 +1,7 @@
 """Batched read mapping on one device: sketch + index join in PyTorch.
 
-Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper`` on one device
-without hash planes. Reads stream into (pad, has_n)-bucketed, 2-bit packed
+Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper`` on one device.
+Reads stream into (pad, has_n)-bucketed, 2-bit packed
 (B, pad/4) batches, N-containing reads with a 1-bit mask of their non-ACGT
 bases (``stream_pipeline.split_n_rows``); one `mapping_step.mapping_step`
 per batch sketches them (the Hopper kernel on a CUDA device), joins the
@@ -9,8 +9,10 @@ minimizers against the contig table and compacts the matched anchors.
 
 Three payloads, with ``DeviceMapper``'s gates:
 
-- per-anchor, host-chained (`prechain` None): the host chains every read
-  in C (``ntlink_tpu.pipeline._map_reads_native`` with prechained=0);
+- per-anchor, host-chained (`prechain` None, or `with_hashes`): the host
+  chains every read in C (``ntlink_tpu.pipeline._map_reads_native`` with
+  prechained=0); `with_hashes` (repeats=True) ships each anchor's hash
+  halves too, for the repeat filter that runs before chaining;
 - per-anchor, prechained: the chaining acceptance stages run in the step
   (`chain.chain_anchors_device`) and only accepted anchors ship;
 - O(runs) (`runs_only`, needs prechained): the step ships each read's
@@ -82,7 +84,7 @@ class TorchMapper:
 
     def __init__(self, index: ContigIndex, k: int, w: int,
                  batch_bases: int = 8_000_000, device=None, prechain=None,
-                 runs_only: bool = False):
+                 runs_only: bool = False, with_hashes: bool = False):
         self.device = device_mod.resolve(device)
         index.finalize()
         self.index = index
@@ -90,8 +92,10 @@ class TorchMapper:
         self.batch_bases = batch_bases
         self.contig_names: List[str] = index.contig_names
         self._contig_order = {n: i for i, n in enumerate(index.contig_names)}
+        self.with_hashes = bool(with_hashes)
         # on-device chaining when `prechain` = (contig lengths in contig-id
-        # order, z) and DeviceMapper's gates hold (no hash planes here);
+        # order, z) and DeviceMapper's gates hold (no hash planes: the
+        # repeat filter must run before chaining);
         # `_host_map_raw` reads `prechained`, `runs_only`, `_chain_sel` and
         # `_chain_z`, so fallback rows ship the same payload kind
         self.prechained = False
@@ -100,6 +104,7 @@ class TorchMapper:
         self._chain_sel = None
         if (
             prechain is not None
+            and not self.with_hashes
             and len(index.contig_names) <= CHAIN_MAX_CONTIGS
         ):
             from ntlink_tpu.native import chain_module
@@ -127,7 +132,7 @@ class TorchMapper:
     def map_stream_raw(self, named_seqs: Iterable[Tuple[str, object]]):
         """Yield (read_name, read_len, raw) in input order. raw is None, or
         (n, rpos, cid, cpos, sbits, hi, lo) int32 arrays (hi = lo = 0 on
-        device rows: no hash planes without the repeat filter), or with
+        device rows unless `with_hashes`), or with
         `runs_only` (n, runs) where runs is chain.c's (n, 8) int32 run
         rows."""
         launches0 = sketch_cuda.launches
@@ -159,6 +164,7 @@ class TorchMapper:
             out = mapping_step(
                 p, ln, self.didx, self.k, self.w, pad, slots, nmask=nm,
                 clen=self._clen_dev, z=self._chain_z, runs=self.runs_only,
+                with_hashes=self.with_hashes,
             )
             pipe.submit_drain((*copy_back(out), len(lengths), slots, rows,
                                row_codes))
@@ -179,7 +185,7 @@ class TorchMapper:
                     l_cpos, l_rw & 0x1FFFFFFF, (l_rw >> 29) & 3,
                 ], axis=1)
             else:
-                planes = flat[2 * B :].reshape(3, B * slots)
+                planes = flat[2 * B :].reshape(-1, B * slots)
             offs = np.zeros(B + 1, np.int64)
             np.cumsum(count, out=offs[1:])
             for row, i in rows.items():
@@ -195,10 +201,13 @@ class TorchMapper:
                     results[i] = (n, runs[o : o + n])
                     continue
                 rw = planes[0, o : o + n]
-                zeros = np.zeros(n, np.int32)
+                if self.with_hashes:
+                    hi, lo = planes[3, o : o + n], planes[4, o : o + n]
+                else:
+                    hi = lo = np.zeros(n, np.int32)
                 results[i] = (
                     n, rw & 0x1FFFFFFF, planes[1, o : o + n],
-                    planes[2, o : o + n], (rw >> 29) & 3, zeros, zeros,
+                    planes[2, o : o + n], (rw >> 29) & 3, hi, lo,
                 )
 
         pipe = DevicePipeline(dispatch, drain, depth=self.DEPTH,

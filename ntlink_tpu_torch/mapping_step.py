@@ -3,8 +3,8 @@
 Counterpart of the single-device parts of ``ntlink_tpu/parallel/mesh.py``:
 `DeviceIndex` (:61-151), `hash_bucket_join` (:234-266), `select_minimizers`
 (:282-308), `compact_flat` (:311-323), `unpack_codes` / `unpack_bits`
-(:326-348), `mapping_step_packed` (:570-753) without hash planes, and
-`sketch_step_packed` (:756-837). One call per read batch:
+(:326-348), `mapping_step_packed` (:570-753) and `sketch_step_packed`
+(:756-837). One call per read batch:
 
     unpack codes [+ N mask] -> sketch kernel [-> windows over valid k-mers]
     -> select minimizers -> gather + finish hash -> bucket hash join
@@ -15,9 +15,12 @@ a CUDA device); every other stage is plain tensor code. The result is one
 int32 tensor whose size depends only on the batch shape, so the caller can
 start its device-to-host copy without waiting for the step:
 
-    [count (B) | n_minimizers (B) | rposw (B*S) | cid (B*S) | cpos (B*S)]
+    [count (B) | n_minimizers (B) | rposw (B*S) | cid (B*S) | cpos (B*S)
+     [| hash_hi (B*S) | hash_lo (B*S)]]
 
-`rposw` = rpos | cstrand << 29 | fwd << 30, and the anchor planes hold
+`rposw` = rpos | cstrand << 29 | fwd << 30, the hash planes (only with
+`with_hashes`, for the repeat filter) hold the reported hash's uint32
+halves (``mesh.py:737-738``), and the anchor planes hold
 every matched anchor packed to the front in read order (row-major), so row
 r's anchors start at sum(count[:r]). A row with n_minimizers > S (the slot
 budget) lost minimizers and must be remapped exactly on the host.
@@ -238,11 +241,12 @@ def sketch_batch(packed: torch.Tensor, lengths: torch.Tensor, k: int,
 
 def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
                  index: DeviceIndex, k: int, w: int, L: int, slots: int,
-                 nmask=None, clen=None, z: int = 0,
-                 runs: bool = False) -> torch.Tensor:
+                 nmask=None, clen=None, z: int = 0, runs: bool = False,
+                 with_hashes: bool = False) -> torch.Tensor:
     """One batch: packed (B, L//4) uint8 and lengths (B,) int32 on the
     index's device -> the flat int32 payload described in the module
-    docstring (2B + 3*B*slots lanes). `nmask`: see `sketch_batch`.
+    docstring (2B + 3*B*slots lanes, 2B + 5*B*slots with `with_hashes`).
+    `nmask`: see `sketch_batch`.
 
     With `clen` ((n_contigs,) int32 contig lengths on the device) and `z`,
     the chaining acceptance stages run here (`chain.chain_anchors_device`)
@@ -256,6 +260,8 @@ def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
     where overflow is RUN_LANES + 1 for a row the host must map again
     (slot or run-lane overflow) and 0 otherwise, and the planes hold every
     row's merged runs packed to the front in read order."""
+    if runs and with_hashes:
+        raise ValueError("runs payloads carry no hash planes")
     B = packed.shape[0]
     can, fwd, winner, emit = sketch_batch(packed, lengths, k, w, L, nmask)
     sel, sel_ok, n_min = select_minimizers(emit, slots)
@@ -285,7 +291,10 @@ def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
             ]).to(torch.int32)
             return torch.cat([meta] + planes)
         n_rep = torch.where(chain_overflow, n_min.clamp(min=slots + 1), n_min)
-    planes = compact_flat(found, (rposw, cid, cpos), B * slots)
+    fields = (rposw, cid, cpos)
+    if with_hashes:
+        fields += (_lo32_as_i32(shr(h, 32)), _lo32_as_i32(h))
+    planes = compact_flat(found, fields, B * slots)
     meta = torch.cat([found.sum(dim=1), n_rep]).to(torch.int32)
     return torch.cat([meta] + planes)
 

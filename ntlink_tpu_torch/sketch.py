@@ -14,9 +14,14 @@ computes windows [c*S, (c+1)*S) of the whole sequence, S = MAX_PAD -
 consecutive-winner dedup at a chunk's first window. Sub-k rows, oversized
 rows with N and slot-overflow rows are sketched exactly on the host (the
 native C sketcher) and counted in `host_fallbacks`.
+
+`TorchHybridSketcher` (backend=hybrid) runs a TorchSketcher and the native
+C thread pool at once over one stream, with ``HybridSketcher``'s scheduler
+and quanta; both paths are exact, so the split changes speed, not bytes.
 """
 from __future__ import annotations
 
+import inspect
 import sys
 import time
 from typing import Dict, Iterable, Iterator, List, Tuple
@@ -26,7 +31,13 @@ import numpy as np
 from ntlink_tpu.device_map import DeviceMapper
 from ntlink_tpu.ops import nthash_np
 from ntlink_tpu.ops.nthash_np import Minimizers
-from ntlink_tpu.sketch import sketch_sequences
+from ntlink_tpu.hybrid_map import HybridStream
+from ntlink_tpu.sketch import (
+    HybridSketcher,
+    _DeviceSketchPath,
+    _HostSketchPath,
+    sketch_sequences,
+)
 from ntlink_tpu.stream_pipeline import DevicePipeline, next_pow2
 
 from . import device as device_mod
@@ -280,3 +291,37 @@ class TorchSketcher:
                 f"slot overflow)",
                 file=sys.stderr,
             )
+
+
+#: HybridSketcher's assignment quanta (items and bases per block)
+_HYBRID_QUANTA = inspect.signature(HybridSketcher).parameters
+
+
+class TorchHybridSketcher:
+    """`sketch_stream` backend that splits the sequences between a
+    TorchSketcher and the native C thread pool (``HybridSketcher``'s
+    contract and quanta; that class cannot be reused, its constructor
+    imports the JAX sketcher)."""
+
+    def __init__(self, device=None, threads: int = 4,
+                 host_frac: float = -1.0):
+        self.device_backend = TorchSketcher(device)
+        self.threads = max(1, threads)
+        self.host_frac = host_frac
+        #: sequences each path delivered in the latest stream
+        self.host_seqs = 0
+        self.device_seqs = 0
+
+    def sketch_stream(self, named_seqs, k: int, w: int):
+        sched = HybridStream(
+            _DeviceSketchPath(self.device_backend, k, w),
+            _HostSketchPath(k, w, self.threads),
+            host_frac=self.host_frac,
+        )
+        sched.BLOCK_READS = _HYBRID_QUANTA["block_items"].default
+        sched.BLOCK_BASES = _HYBRID_QUANTA["block_bases"].default
+        try:
+            yield from sched.stream(named_seqs)
+        finally:
+            self.host_seqs = sched.host_reads
+            self.device_seqs = sched.device_reads

@@ -1,5 +1,5 @@
-"""The Hopper sketch kernel against its plain version, and the steps of N
-batches against the CPU's, on the card.
+"""The Hopper sketch kernel and integer peak probe against their plain
+versions, and the steps of N batches against the CPU's, on the card.
 
 This file imports no JAX (nor does anything it imports), so it also runs on
 a machine without JAX, where ``tests/conftest.py`` cannot load:
@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from ntlink_tpu_torch.ops import sketch_cuda, sketch_torch as st
+from ntlink_tpu_torch.ops import alu_peak_cuda, sketch_cuda, sketch_torch as st
+from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
 
 
 def _edge_lengths(rng, k, w, B, L):
@@ -99,3 +100,20 @@ def test_steps_with_n_rows_on_card_match_cpu(mode):
         outs.append(out.cpu())
     assert torch.equal(outs[0], outs[1])
     assert int(outs[0][:B].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", WIDTHS)
+def test_alu_peak_matches_plain_version_on_card(width):
+    """The probe kernel equals its plain version bit for bit (uint32 math
+    mod 2^32) at the probe's (256, 1024) shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(width)
+    x = rng.integers(0, 2**32, (256, 1024), dtype=np.uint64).astype(np.uint32)
+    x = torch.from_numpy(x.view(np.int32)).cuda()
+    for iters in (0, 1, 7, 64):
+        launches = alu_peak_cuda.launches
+        out = alu_peak_cuda.alu_peak(x, iters, width)
+        assert alu_peak_cuda.launches == launches + 1
+        assert torch.equal(out, alu_peak_ref(x, iters, width)), iters

@@ -1,68 +1,27 @@
 """The port's `pair` stage end to end on the CPU: the contig sketch TSV, DOT,
 pairs.tsv and verbose_mapping artifacts are byte-identical to ntlink_tpu's
 pair stage under its JAX and NumPy backends, in the default (verbose,
-prechained) run and in the lean (runs-only) run; the port never loads JAX,
-and its CLI refuses to run without a CUDA device."""
+prechained) run and in the lean (runs-only) run, and with PAF output; the
+port never loads JAX, and its CLI refuses to run without a CUDA device."""
 import filecmp
 import os
 import subprocess
 import sys
 
-import numpy as np
 import pytest
 
 from ntlink_tpu.config import ScaffoldConfig
 from ntlink_tpu.pipeline import pair_stage as jax_pair_stage
 from ntlink_tpu_torch import pipeline
-from ntlink_tpu_torch.pipeline import NotPorted, pair_stage
+from ntlink_tpu_torch.pipeline import pair_stage
+
+from .synthetic import write_dataset as _write_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-BASES = np.array(list("ACGT"))
 PREFIX = "target.fa.k32.w100.z1000"
 ARTIFACTS = (".n1.scaffold.dot", ".pairs.tsv", ".verbose_mapping.tsv")
 CONTIG_TSV = "target.fa.k32.w100.tsv"
-
-
-def _write_dataset(d, seed=11):
-    """A random genome cut into contigs with 500 b gaps between them, and
-    reads sampled across it with 3% substitutions, half reverse-complemented
-    (tests/test_synthetic_truth.py:18-44, smaller), plus a sub-k read and an
-    N-containing one. contig1 holds a run of 100 N in its middle, so the
-    reads that cross it carry N too."""
-    rng = np.random.default_rng(seed)
-    pieces, contigs = [], []
-    for i in range(4):
-        seq = "".join(BASES[rng.integers(0, 4, 60_000)])
-        if i == 1:
-            seq = seq[:30_000] + "N" * 100 + seq[30_100:]
-        contigs.append((f"contig{i}", seq))
-        pieces.append(seq)
-        pieces.append("".join(BASES[rng.integers(0, 4, 500)]))
-    genome = "".join(pieces)
-    comp = str.maketrans("ACGT", "TGCA")
-    reads = []
-    for r in range(150):
-        n = int(rng.integers(3000, 20_000))
-        start = int(rng.integers(0, len(genome) - n))
-        arr = np.frombuffer(genome[start : start + n].encode(), np.uint8).copy()
-        pos = rng.integers(0, n, n * 3 // 100)
-        arr[pos] = BASES[rng.integers(0, 4, len(pos))].astype("S1").view(
-            np.uint8
-        )
-        seq = arr.tobytes().decode()
-        if rng.random() < 0.5:
-            seq = seq.translate(comp)[::-1]
-        reads.append((f"r{r}", seq))
-    reads.append(("short", "ACGTTGCA"))
-    reads.append(("with_n", reads[0][1][:4000] + "N" + reads[0][1][4001:]))
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "target.fa"), "w") as fh:
-        for name, seq in contigs:
-            fh.write(f">{name}\n{seq}\n")
-    with open(os.path.join(d, "reads.fa"), "w") as fh:
-        for name, seq in reads:
-            fh.write(f">{name}\n{seq}\n")
 
 
 def _cfg(**kw):
@@ -170,11 +129,12 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize(
     "argv,message",
     [
-        (["scaffold", "target=t.fa", "reads=r.fa"], "not yet ported: scaffold"),
-        (["pair", "target=t.fa", "reads=r.fa", "repeats=True"],
-         "not yet ported: repeats=True"),
-        (["pair", "target=t.fa", "reads=r.fa", "backend=hybrid"],
-         "not yet ported: backend=hybrid"),
+        (["pair", "target=t.fa", "reads=r.fa", "index_sharding=hash"],
+         "not yet ported: index_sharding=hash"),
+        (["scaffold", "target=t.fa", "reads=r.fa", "v=1"],
+         "not yet ported: v (tracing)"),
+        (["pair", "target=t.fa", "reads=r.fa", "backend=numpy"],
+         "python -m ntlink_tpu ... backend=numpy"),
     ],
 )
 def test_cli_rejects_unported(argv, message, capsys):
@@ -184,7 +144,23 @@ def test_cli_rejects_unported(argv, message, capsys):
     assert message in capsys.readouterr().err
 
 
-def test_pair_stage_rejects_repeats(tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotPorted, match="repeats"):
-        pair_stage(_cfg(repeats=True), device="cpu")
+@pytest.mark.parametrize("verbose", [True, False])
+def test_pair_paf_matches_jax_package(tmp_path, monkeypatch, verbose):
+    """paf=True: per-anchor payloads (prechained; no runs-only payload,
+    PAF needs the anchors), with and without the verbose mapping; the PAF,
+    DOT and pairs.tsv are ntlink_tpu's backend=numpy bytes."""
+    for side in ("torch", "numpy"):
+        _write_dataset(tmp_path / side, seed=13)
+    monkeypatch.chdir(tmp_path / "torch")
+    pair_stage(_cfg(batch_bases=200_000, paf=True, verbose=verbose),
+               device="cpu")
+    assert pipeline.last_mapper.prechained
+    assert not pipeline.last_mapper.runs_only
+    monkeypatch.chdir(tmp_path / "numpy")
+    jax_pair_stage(_cfg(backend="numpy", t=1, paf=True, verbose=verbose))
+    arts = [PREFIX + a for a in (".paf",) + ARTIFACTS[: 3 if verbose else 2]]
+    for art in arts:
+        port = tmp_path / "torch" / art
+        assert os.path.getsize(port) > 0, art
+        assert filecmp.cmp(port, tmp_path / "numpy" / art, shallow=False), art
+    assert (tmp_path / "torch" / f"{PREFIX}{ARTIFACTS[2]}").exists() == verbose
