@@ -10,7 +10,7 @@ minimizers against the contig table and compacts the matched anchors.
 Three payloads, with ``DeviceMapper``'s gates:
 
 - per-anchor, host-chained (`prechain` None, or `with_hashes`): the host
-  chains every read in C (``ntlink_tpu.pipeline._map_reads_native`` with
+  chains every read in C (`pipeline._map_reads_native` with
   prechained=0); `with_hashes` (repeats=True) ships each anchor's hash
   halves too, for the repeat filter that runs before chaining;
 - per-anchor, prechained: the chaining acceptance stages run in the step
@@ -18,10 +18,10 @@ Three payloads, with ``DeviceMapper``'s gates:
 - O(runs) (`runs_only`, needs prechained): the step ships each read's
   merged runs, decoded here to chain.c's run rows [cid, count, f_cpos,
   f_rpos, f_sbits, l_cpos, l_rpos, l_sbits] for
-  ``ntlink_tpu.pipeline._map_reads_runs``.
+  `pipeline._map_reads_runs`.
 
 Reads the device does not take go to the exact host path
-(``DeviceMapper._host_map_raw``: native C sketch + sorted-index join, then
+(`TorchMapper._host_map_raw`: native C sketch + sorted-index join, then
 chain.c for the prechained and runs payloads) and are counted in
 `host_fallbacks`: sub-k reads, reads over MAX_PAD, and reads whose
 minimizers overflow the slot budget or whose runs overflow RUN_LANES.
@@ -32,20 +32,20 @@ from __future__ import annotations
 
 import sys
 import time
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 import torch
 
-from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu.index import ContigIndex
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.stream_pipeline import DevicePipeline, next_pow2, split_n_rows
-
 from . import device as device_mod
 from .chain import CHAIN_MAX_CONTIGS, RUN_LANES
+from .index import ContigIndex
+from .mapping import AnchorHit
 from .mapping_step import DeviceIndex, mapping_step, pack_codes
-from .ops import sketch_cuda
+from .native import chain_module, fastx_module, sketch_module
+from .ops import nthash_np, sketch_cuda
+from .ops.nthash_np import Minimizers
+from .stream_pipeline import DevicePipeline, next_pow2, split_n_rows
 
 
 class _Remap:
@@ -70,17 +70,10 @@ class TorchMapper:
     contract: `contig_names`, `_contig_order`, `prechained`, `runs_only`,
     `host_fallbacks`, `map_stream_raw`, `map_stream`)."""
 
-    MIN_PAD = DeviceMapper.MIN_PAD
-    MAX_PAD = DeviceMapper.MAX_PAD
+    MIN_PAD = 1 << 10
+    MAX_PAD = 1 << 21
     #: in-flight batches between the producer, feeder and drainer threads
     DEPTH = 4
-
-    # the exact host path and the per-hit view are DeviceMapper's own code
-    # (no JAX in either): payloads match by construction
-    _host_map_raw = DeviceMapper._host_map_raw
-    _pad_len = DeviceMapper._pad_len
-    _slots_for = DeviceMapper._slots_for
-    map_stream = DeviceMapper.map_stream
 
     def __init__(self, index: ContigIndex, k: int, w: int,
                  batch_bases: int = 8_000_000, device=None, prechain=None,
@@ -107,8 +100,6 @@ class TorchMapper:
             and not self.with_hashes
             and len(index.contig_names) <= CHAIN_MAX_CONTIGS
         ):
-            from ntlink_tpu.native import chain_module
-
             cm = chain_module()
             if cm is not None:  # exact host chaining for fallback rows
                 clen_arr, z = prechain
@@ -128,6 +119,125 @@ class TorchMapper:
         self.kernel_launches = 0
         #: wall seconds of every read stream so far (the summary line's)
         self.stream_seconds = 0.0
+
+    def _slots_for(self, L: int) -> int:
+        """Minimizer slot budget for padded length L (density ~2/(w+1))."""
+        return next_pow2(max(128, int(2.5 * L / (self.w + 1)) + 64))
+
+    def _host_map_raw(self, codes: np.ndarray):
+        """Host fallback producing the raw array payload (exact path):
+        native C rolling sketcher when built, NumPy otherwise.
+
+        Counted per-mapper (`host_fallbacks`); a summary line is printed at
+        stream end so a fallback-heavy run (e.g. many ultra-long reads over
+        MAX_PAD) is visible instead of just mysteriously slow."""
+        self.host_fallbacks += 1
+        sm = sketch_module()
+        if sm is not None:
+            _, hb, pb, fb = sm.sketch(
+                np.ascontiguousarray(codes), self.k, self.w
+            )
+            mins = Minimizers(
+                np.frombuffer(hb, np.uint64),
+                np.frombuffer(pb, np.int64),
+                np.frombuffer(fb, np.uint8).astype(bool),
+            )
+        else:
+            mins = nthash_np.sketch_codes(codes, self.k, self.w)
+        found, cid, cpos, cstrand = self.index.lookup_many(mins.hashes)
+        if not found.any():
+            return None
+        hashes = mins.hashes[found]
+        n = int(hashes.shape[0])
+        rpos = mins.positions[found].astype(np.int32)
+        sbits = (
+            cstrand[found].astype(np.int32)
+            | (mins.forward[found].astype(np.int32) << 1)
+        )
+        hi = (hashes >> np.uint64(32)).astype(np.uint32).view(np.int32)
+        lo = (hashes & np.uint64(0xFFFFFFFF)).astype(np.uint32).view(np.int32)
+        rpos = np.ascontiguousarray(rpos)
+        cid = np.ascontiguousarray(cid[found].astype(np.int32))
+        cpos = np.ascontiguousarray(cpos[found].astype(np.int32))
+        sbits = np.ascontiguousarray(sbits)
+        if self.runs_only:
+            # payload contract is per-RUN summaries: run the full exact C
+            # chain and keep only the run rows (chain.c row layout [cid,
+            # count, f_cpos, f_rpos, f_sbits, l_cpos, l_rpos, l_sbits])
+            runs_b, _, _, _ = self._chain_sel.chain_batch(
+                cid, cpos, rpos, sbits,
+                np.array([0, n], np.int64),
+                np.array([len(codes)], np.int32),
+                None, self.k, self._chain_z, 0, 0.0, 0, 0,
+            )
+            rr = np.frombuffer(runs_b, np.int32).reshape(-1, 8)
+            if rr.shape[0] == 0:
+                return None
+            return (rr.shape[0], rr)
+        if self.prechained:
+            # the payload contract for this mapper is PRE-CHAINED anchors
+            # (on-device chaining) — apply the identical acceptance stages
+            # exactly in C for fallback rows
+            sel = np.frombuffer(
+                self._chain_sel.chain_select(
+                    cid, cpos, rpos, sbits,
+                    len(codes), self.k, self._chain_z, 0, 0.0,
+                ),
+                np.int32,
+            )
+            n = len(sel)
+            if n == 0:
+                return None
+            rpos, cid, cpos, sbits = (
+                np.ascontiguousarray(rpos[sel]),
+                np.ascontiguousarray(cid[sel]),
+                np.ascontiguousarray(cpos[sel]),
+                np.ascontiguousarray(sbits[sel]),
+            )
+            hi = np.ascontiguousarray(hi[sel])
+            lo = np.ascontiguousarray(lo[sel])
+        return (n, rpos, cid, cpos, sbits, hi, lo)
+
+    def _pad_len(self, n: int) -> int:
+        p = self.MIN_PAD
+        while p < n and p < self.MAX_PAD:
+            p <<= 1
+        return p
+
+    def map_stream(
+        self, named_seqs: Iterable[Tuple[str, str]]
+    ) -> Iterator[Tuple[str, int, List[Tuple[str, AnchorHit]]]]:
+        """Yield (read_name, read_len, [(contig, AnchorHit)...]) in order."""
+        assert not self.runs_only, "runs-only payloads have no per-hit view"
+        names = self.contig_names
+        for name, length, raw in self.map_stream_raw(named_seqs):
+            if raw is None:
+                yield name, length, []
+                continue
+            n, rpos, cid, cpos, sbits, hi, lo = raw
+            hits = [
+                (
+                    names[c],
+                    AnchorHit(
+                        h,
+                        p,
+                        "+" if b & 1 else "-",
+                        r,
+                        "+" if b & 2 else "-",
+                    ),
+                )
+                for r, c, p, b, h in zip(
+                    rpos[:n].tolist(),
+                    cid[:n].tolist(),
+                    cpos[:n].tolist(),
+                    sbits[:n].tolist(),
+                    (
+                        (hi[:n].view(np.uint32).astype(np.uint64) << np.uint64(32))
+                        | lo[:n].view(np.uint32).astype(np.uint64)
+                    ).tolist(),
+                )
+            ]
+            yield name, length, hits
 
     def map_stream_raw(self, named_seqs: Iterable[Tuple[str, object]]):
         """Yield (read_name, read_len, raw) in input order. raw is None, or
@@ -327,8 +437,6 @@ def pack_batch(row_codes: List[np.ndarray], B: int, pad: int, has_n: bool):
     """Host side of a device batch: (packed (B, pad/4) uint8 2-bit codes,
     nmask (B, pad/8) bit-packed non-ACGT mask or None). Rows of a has_n
     batch are cleaned to A for packing (``split_n_rows``)."""
-    from ntlink_tpu.native import fastx_module
-
     nmask = None
     if has_n:
         row_codes, nmask = split_n_rows(row_codes, B, pad)

@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from ntlink_tpu.ops import nthash_np
+from . import nthash_np
 
 SIGN = -(1 << 63)            # int64 with only the sign bit set
 ALL_ONES = -1                # the uint64 value 2^64-1 as int64

@@ -1,9 +1,10 @@
 """Batched contig sketching on one torch device.
 
 Counterpart of ``ntlink_tpu/ops/sketch_jax.py::JaxSketcher`` (:367-688):
-the `sketch_stream` backend that ``ntlink_tpu.sketch.sketch_sequences``
-hands a FASTA to (``sketch_fasta_to_tsv(..., backend=TorchSketcher(...))``
-writes the contig sketch TSV). Sequences stream into (pad, has_n) buckets
+the `sketch_stream` backend that `sketch_sequences` hands a FASTA to
+(``sketch_fasta_to_tsv(..., backend=TorchSketcher(...))`` writes the contig
+sketch TSV); the host half of ``ntlink_tpu/sketch.py`` (the host backend,
+the hybrid paths and the TSV dialects) is here too. Sequences stream into (pad, has_n) buckets
 of ~16 M bases; one `mapping_step.sketch_step` per batch sketches them (the
 Hopper kernel on a CUDA device; N rows take their windows again over the
 valid k-mers) and ships only the minimizers.
@@ -21,29 +22,118 @@ and quanta; both paths are exact, so the split changes speed, not bytes.
 """
 from __future__ import annotations
 
-import inspect
+import os
 import sys
 import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterable, Iterator, List, Tuple
 
 import numpy as np
 
-from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu.ops import nthash_np
-from ntlink_tpu.ops.nthash_np import Minimizers
-from ntlink_tpu.hybrid_map import HybridStream
-from ntlink_tpu.sketch import (
-    HybridSketcher,
-    _DeviceSketchPath,
-    _HostSketchPath,
-    sketch_sequences,
-)
-from ntlink_tpu.stream_pipeline import DevicePipeline, next_pow2
-
 from . import device as device_mod
-from .device_map import batch_rows, copy_back, pack_batch, to_device
+from .device_map import TorchMapper, batch_rows, copy_back, pack_batch, to_device
+from .hybrid_map import HybridStream
 from .mapping_step import sketch_step
-from .ops import sketch_cuda
+from .native import fastx_module, sketch_module
+from .ops import nthash_np, sketch_cuda
+from .ops.nthash_np import Minimizers
+from .seqio import stream_fastx
+from .stream_pipeline import DevicePipeline, next_pow2
+
+
+def sketch_sequences(
+    named_seqs: Iterable[Tuple[str, str]],
+    k: int,
+    w: int,
+    backend=None,
+    threads: int = 1,
+) -> Iterator[Tuple[str, int, Minimizers]]:
+    """Yield (name, seq_len, Minimizers) per input sequence.
+
+    `threads` > 1 (host backend only) runs the native C rolling sketcher
+    over a thread pool — it releases the GIL, so this is real CPU
+    parallelism (the stand-in for btllib indexlr's `-t`, ntLink:199).
+    Output order is preserved."""
+    if backend is None:
+        def to_codes(seq):
+            # payloads may arrive pre-encoded (HybridSketcher paths)
+            return seq if isinstance(seq, np.ndarray) else nthash_np.encode(seq)
+
+        sm = sketch_module()
+        if sm is not None:
+            # native rolling sketcher (bit-exact vs nthash_np; ~6x the
+            # vectorized NumPy hasher at assembly scale)
+
+            def decode(res, n):
+                _, hb, pb, fb = res
+                return n, Minimizers(
+                    np.frombuffer(hb, np.uint64),
+                    np.frombuffer(pb, np.int64),
+                    np.frombuffer(fb, np.uint8).astype(bool),
+                )
+
+            if threads > 1:
+                def job(item):
+                    name, seq = item
+                    return name, decode(
+                        sm.sketch(to_codes(seq), k, w), len(seq)
+                    )
+
+                with ThreadPoolExecutor(max_workers=threads) as pool:
+                    # bounded in-flight window (2x threads): keeps every
+                    # core fed without materializing the whole input (a
+                    # genome's worth of sequence) in memory; FIFO pops
+                    # preserve input order
+                    inflight = deque()
+                    for item in named_seqs:
+                        inflight.append(pool.submit(job, item))
+                        if len(inflight) >= 2 * threads:
+                            name, (n, mins) = inflight.popleft().result()
+                            yield name, n, mins
+                    while inflight:
+                        name, (n, mins) = inflight.popleft().result()
+                        yield name, n, mins
+                return
+            for name, seq in named_seqs:
+                n, mins = decode(sm.sketch(to_codes(seq), k, w), len(seq))
+                yield name, n, mins
+            return
+        for name, seq in named_seqs:
+            yield name, len(seq), nthash_np.sketch_codes(to_codes(seq), k, w)
+    else:
+        yield from backend.sketch_stream(named_seqs, k, w)
+
+
+class _DeviceSketchPath:
+    """Adapt a device sketch backend to the HybridStream path interface."""
+
+    def __init__(self, backend, k: int, w: int):
+        self.backend, self.k, self.w = backend, k, w
+
+    def map_stream_raw(self, named_codes):
+        yield from self.backend.sketch_stream(named_codes, self.k, self.w)
+
+
+class _HostSketchPath:
+    """Threaded native-C sketch path (HybridStream interface)."""
+
+    def __init__(self, k: int, w: int, threads: int):
+        self.k, self.w, self.threads = k, w, threads
+
+    def map_stream_raw(self, named_codes):
+        def to_seq(codes):
+            if isinstance(codes, np.ndarray):
+                return codes
+            return nthash_np.encode(codes)
+
+        yield from sketch_sequences(
+            ((name, to_seq(c)) for name, c in named_codes),
+            self.k,
+            self.w,
+            threads=self.threads,
+        )
+
 
 
 def _empty() -> Minimizers:
@@ -70,7 +160,7 @@ class TorchSketcher:
     MAX_PAD = 1 << 21
     MAX_SLOTS = 1 << 17
 
-    _pad_len = DeviceMapper._pad_len
+    _pad_len = TorchMapper._pad_len
 
     def __init__(self, device=None, batch_bases: int = 16_000_000):
         self.device = device_mod.resolve(device)
@@ -96,7 +186,7 @@ class TorchSketcher:
         return s
 
     def _host_sketch(self, codes: np.ndarray, k: int, w: int) -> Minimizers:
-        """Exact host sketch (``ntlink_tpu.sketch``'s host backend: the
+        """Exact host sketch (`sketch_sequences`' host backend: the
         native C sketcher, NumPy without it)."""
         self.host_fallbacks += 1
         return next(sketch_sequences(iter([("", codes)]), k, w))[2]
@@ -293,15 +383,17 @@ class TorchSketcher:
             )
 
 
-#: HybridSketcher's assignment quanta (items and bases per block)
-_HYBRID_QUANTA = inspect.signature(HybridSketcher).parameters
+#: the hybrid sketcher's assignment quanta: a block is ~one device bucket
+#: of bases; the item quantum keeps streams of many small sequences
+#: splitting (``HybridSketcher``'s `block_items` and `block_bases`)
+HYBRID_BLOCK_ITEMS = 64
+HYBRID_BLOCK_BASES = 16_000_000
 
 
 class TorchHybridSketcher:
     """`sketch_stream` backend that splits the sequences between a
     TorchSketcher and the native C thread pool (``HybridSketcher``'s
-    contract and quanta; that class cannot be reused, its constructor
-    imports the JAX sketcher)."""
+    contract and quanta)."""
 
     def __init__(self, device=None, threads: int = 4,
                  host_frac: float = -1.0):
@@ -318,10 +410,89 @@ class TorchHybridSketcher:
             _HostSketchPath(k, w, self.threads),
             host_frac=self.host_frac,
         )
-        sched.BLOCK_READS = _HYBRID_QUANTA["block_items"].default
-        sched.BLOCK_BASES = _HYBRID_QUANTA["block_bases"].default
+        sched.BLOCK_READS = HYBRID_BLOCK_ITEMS
+        sched.BLOCK_BASES = HYBRID_BLOCK_BASES
         try:
             yield from sched.stream(named_seqs)
         finally:
             self.host_seqs = sched.host_reads
             self.device_seqs = sched.device_reads
+
+
+def format_minimizers_bytes(mins: Minimizers, with_strand: bool = True) -> bytes:
+    """Render the indexlr TSV body ("hash:pos[:strand] ..."); native C
+    renderer when available (~30x at assembly scale), Python fallback."""
+    native = fastx_module()
+    if native is not None and hasattr(native, "render_minimizers"):
+        return native.render_minimizers(
+            np.ascontiguousarray(mins.hashes),
+            np.ascontiguousarray(mins.positions.astype(np.int64)),
+            np.ascontiguousarray(mins.forward).view(np.uint8)
+            if with_strand
+            else None,
+            len(mins.hashes),
+        )
+    return format_minimizers(mins, with_strand=with_strand).encode()
+
+
+def format_minimizers(mins: Minimizers, with_strand: bool = True) -> str:
+    if with_strand:
+        return " ".join(
+            f"{h}:{p}:{'+' if f else '-'}"
+            for h, p, f in zip(mins.hashes, mins.positions, mins.forward)
+        )
+    return " ".join(f"{h}:{p}" for h, p in zip(mins.hashes, mins.positions))
+
+
+def write_sketch_tsv(
+    out_fh,
+    named_seqs: Iterable[Tuple[str, str]],
+    k: int,
+    w: int,
+    with_strand: bool = True,
+    with_len: bool = False,
+    backend=None,
+    threads: int = 1,
+) -> None:
+    """Stream sequences through the sketcher, writing indexlr-style TSV
+    (binary file handle)."""
+    for name, seq_len, mins in sketch_sequences(
+        named_seqs, k, w, backend=backend, threads=threads
+    ):
+        body = format_minimizers_bytes(mins, with_strand=with_strand)
+        if with_len:
+            out_fh.write(f"{name}\t{seq_len}\t".encode() + body + b"\n")
+        else:
+            out_fh.write(f"{name}\t".encode() + body + b"\n")
+
+
+def sketch_fasta_to_tsv(
+    fasta_path: str,
+    out_path: str,
+    k: int,
+    w: int,
+    with_strand: bool = True,
+    with_len: bool = False,
+    backend=None,
+    threads: int = 1,
+) -> None:
+    # crash-safe artifact write (tmp + atomic rename): a killed run must
+    # not leave a truncated TSV that a later run's mtime-freshness check
+    # would silently reuse as a complete sketch
+    tmp = f"{out_path}.tmp{os.getpid()}"
+    try:
+        with open(tmp, "wb") as out_fh:
+            write_sketch_tsv(
+                out_fh,
+                ((rec.name, rec.seq) for rec in stream_fastx(fasta_path)),
+                k,
+                w,
+                with_strand=with_strand,
+                with_len=with_len,
+                backend=backend,
+                threads=threads,
+            )
+        os.replace(tmp, out_path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)

@@ -10,6 +10,7 @@ setup(
     package_data={
         "ntlink_tpu.native": ["*.c"],
         "ntlink_tpu_torch": ["csrc/*.cu"],
+        "ntlink_tpu_torch.native": ["*.c"],
     },
     python_requires=">=3.10",
     install_requires=["numpy"],

@@ -26,7 +26,8 @@ def _edge_lengths(rng, k, w, B, L):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "k,w,L", [(32, 100, 16384), (15, 5, 32768), (40, 100, 1 << 21)]
+    "k,w,L", [(32, 100, 16384), (15, 5, 32768), (40, 100, 1 << 21),
+              (24, 250, 5000)]
 )
 def test_kernel_matches_plain_version_on_card(k, w, L):
     if not torch.cuda.is_available():
@@ -59,10 +60,10 @@ def test_steps_with_n_rows_on_card_match_cpu(mode):
     version) bit for bit."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from ntlink_tpu.index import ContigIndex
-    from ntlink_tpu.ops import nthash_np
-    from ntlink_tpu.stream_pipeline import split_n_rows
     from ntlink_tpu_torch import mapping_step as ms
+    from ntlink_tpu_torch.index import ContigIndex
+    from ntlink_tpu_torch.ops import nthash_np
+    from ntlink_tpu_torch.stream_pipeline import split_n_rows
 
     k, w, L, B = 32, 100, 16384, 16
     rng = np.random.default_rng(7)

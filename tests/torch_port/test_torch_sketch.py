@@ -155,7 +155,7 @@ def test_cpu_tensor_takes_plain_version():
     got = sketch_cuda.sketch_rows(codes, lengths, 32, 100)
     want = st.sketch_rows_ref(codes, lengths, 32, 100)
     assert sketch_cuda.launches == 0
-    assert sketch_cuda._fn is None  # nothing was built or loaded
+    assert sketch_cuda._lib is None  # nothing was built or loaded
     for g, x in zip(got, want):
         assert torch.equal(g, x)
 
