@@ -25,14 +25,31 @@ and lean, held against 2a and 2b. Phase 4: repeats=True (hash planes) on
 draft cut the same way, card vs CPU, every file of the run; round 2 must
 launch no sketch kernel. Phase 6: the kernel bench
 (``python -m ntlink_tpu_torch.kernel_bench``), its JSON on a line of its
-own. Every phase prints a line; any failure exits non-zero before the last
-line, which is the JSON result. Without a CUDA device it exits 1.
+own. Phases 7-10 run on the phase-5-sized draft with its reads in two
+files, each held byte for byte against a one-process, one-device card run.
+Phase 7: two processes on the card, `scaffold gap_fill verbose=True` over
+NTLINK_GROUP_DIR, and `pair` over NTLINK_COORDINATOR (gloo, loopback) from
+a fresh copy of the package in which nothing is built, so that both ranks
+reach the first-use builds at once. Phase 8: the card named twice
+(``["cuda:0", "cuda:0"]``): two replicas, default and lean, then
+index_sharding=hash idx_shards=2, plain and with repeats=True on 2,000
+reads, and the dryruns of ``ntlink_tpu_torch.graft_entry``. Phase 9:
+`scaffold gap_fill v=1` under NTLINK_TORCH_PROFILE: the span names in
+order, one Chrome trace per stage, and the `pair/map-reads` trace's device
+time by `record_function` range. Phase 10: backend=numpy in a process
+with no CUDA device visible. Every phase prints a line; any failure exits
+non-zero before the last line, which is the JSON result. Without a CUDA
+device it exits 1.
 """
 from __future__ import annotations
 
 import filecmp
 import json
 import os
+import re
+import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -42,7 +59,9 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from ntlink_tpu_torch import cli, kernel_bench, native, pipeline
+from ntlink_tpu_torch import (
+    cli, graft_entry, kernel_bench, native, pipeline, tracing,
+)
 from ntlink_tpu_torch.device_map import batch_rows
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
@@ -99,6 +118,21 @@ REPEATS_ARGV = ["pair", "target=target.fa", "reads=reads2k.fa", "k=32",
 SMALL = dict(n_contigs=500, n_long=1, n_gapped=50, n_reads=6_000)
 ROUNDS_ARGV = ["run_rounds_gaps", "target=target.fa", "reads=reads.fa",
                "k=32", "w=100", "z=1000", "rounds=2"]
+# phases 7-10: the same smaller draft, its reads in two files
+REPO = os.path.dirname(os.path.abspath(__file__))
+TWO_FILES = ["target=target.fa", "reads=reads1.fa reads2.fa", "k=32",
+             "w=100", "z=1000"]
+SCAF2_ARGV = ["scaffold", "gap_fill", "verbose=True"] + TWO_FILES
+PAIR2_ARGV = ["pair", "pairs_tsv=True"] + TWO_FILES
+REPEATS2_ARGV = REPEATS_ARGV + ["index_sharding=hash", "idx_shards=2"]
+TWO_CARDS = ["cuda:0", "cuda:0"]
+SPANS = ["pair/contig-sketch", "pair/map-reads", "pair/graph-build",
+         "layout+stitch", "overlap-trim", "merge", "gap-fill"]
+STEP_RANGES = ("mapping_step/unpack", "mapping_step/sketch",
+               "mapping_step/select", "mapping_step/join", "chain/accept",
+               "mapping_step/compact")
+SKETCH_KERNEL = "sketch_rows_kernel"
+RANK_TIMEOUT_S = 600
 
 
 def log(*parts) -> None:
@@ -108,6 +142,44 @@ def log(*parts) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", flush=True)
     sys.exit(1)
+
+
+def child_processes() -> list:
+    """(pid, state, command) of every process whose parent is this one."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as fh:
+                stat = fh.read()
+        except OSError:  # gone between the listing and the read
+            continue
+        comm = stat[stat.find("(") + 1:stat.rfind(")")]
+        state, ppid = stat[stat.rfind(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            out.append((int(name), state, comm))
+    return out
+
+
+def stop_children() -> list:
+    """Ends every process this one started and still has, and waits for
+    each. The one that a passing run has is the resource tracker that
+    `multiprocessing` starts with the layout sweep's first spawned pool:
+    it lives as long as its parent unless it is stopped here, by closing
+    its pipe and waiting for it. Returns whatever else had to be killed."""
+    from multiprocessing import resource_tracker
+    resource_tracker._resource_tracker._stop()
+    killed = []
+    for pid, state, comm in child_processes():
+        if state != "Z":
+            killed.append((pid, comm))
+            os.kill(pid, signal.SIGKILL)
+        try:
+            os.waitpid(pid, 0)
+        except ChildProcessError:  # already waited for
+            pass
+    return killed
 
 
 def edge_specs(L: int, k: int, w: int):
@@ -549,7 +621,8 @@ def phase_slice(dev) -> dict:
             "hybrid": hybrid}
 
 
-def same_tree(label: str, a_dir: str, b_dir: str, must_have) -> None:
+def same_tree(label: str, a_dir: str, b_dir: str, must_have,
+              what: str = "card == CPU") -> None:
     """Both directories hold the same names, each symlink points at the
     same name and each file holds the same bytes; `must_have` are there."""
     names = sorted(os.listdir(a_dir))
@@ -567,7 +640,7 @@ def same_tree(label: str, a_dir: str, b_dir: str, must_have) -> None:
                 fail(f"{label}: {name} is empty")
         elif not filecmp.cmp(a, b, shallow=False):
             fail(f"{label}: {name} differs")
-    log(f"{label}: {len(names)} names, card == CPU: "
+    log(f"{label}: {len(names)} names, {what}: "
         + ", ".join(f"{n} ({os.path.getsize(os.path.join(a_dir, n))} B)"
                     for n in must_have))
 
@@ -613,6 +686,322 @@ def phase_rounds(dev) -> dict:
         log(f"phase 5: the same on the CPU (plain version): {cpu_s:.1f} s")
         same_tree("phase 5", card, cpu, must)
     return {"launches": launches, "card_s": card_s, "cpu_s": cpu_s}
+
+
+def split_read_files(d: str) -> None:
+    """reads1.fa and reads2.fa: the two halves of `d`/reads.fa, so that
+    file sharding has something to split."""
+    with open(os.path.join(d, "reads.fa"), "rb") as fh:
+        lines = fh.read().splitlines(keepends=True)
+    half = (len(lines) // 4) * 2
+    for name, part in (("reads1.fa", lines[:half]), ("reads2.fa",
+                                                     lines[half:])):
+        with open(os.path.join(d, name), "wb") as fh:
+            fh.writelines(part)
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(root: str, name: str, argv, inputs, group_env: dict,
+              pythonpath: str):
+    """Two ranks of ``python -m ntlink_tpu_torch`` at once, each in a
+    directory of its own. Returns ([directory], [sketch kernel launches the
+    rank reported], all exit codes 0). Each rank leads a process group of
+    its own; both are waited for, killed at RANK_TIMEOUT_S, and whatever
+    they started and left behind dies with their group."""
+    dirs, procs, logs = [], [], []
+    for pid in range(2):
+        d = os.path.join(root, f"{name}_rank{pid}")
+        if os.path.exists(d):
+            shutil.rmtree(d)
+        make_dir(root, f"{name}_rank{pid}", inputs)
+        dirs.append(d)
+        logs.append(os.path.join(root, f"{name}_rank{pid}.log"))
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith("NTLINK_")}
+        env.update(group_env, PYTHONPATH=pythonpath,
+                   NTLINK_NUM_PROCESSES="2", NTLINK_PROCESS_ID=str(pid))
+        with open(logs[-1], "wb") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ntlink_tpu_torch", *argv], cwd=d,
+                env=env, stdout=fh, stderr=subprocess.STDOUT,
+                process_group=0,
+            ))
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+    for p in procs:
+        try:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+        try:
+            os.killpg(p.pid, signal.SIGKILL)
+        except ProcessLookupError:  # the group ended with its leader
+            pass
+    launches, ok = [], True
+    for pid, (p, path) in enumerate(zip(procs, logs)):
+        with open(path, errors="replace") as fh:
+            text = fh.read()
+        if p.returncode != 0:
+            ok = False
+            log(f"{name}: rank {pid} exited {p.returncode}:\n{text[-3000:]}")
+        launches.append(sum(
+            int(n) for n in re.findall(r"(\d+) sketch kernel launch", text)))
+    return dirs, launches, ok
+
+
+def phase_ranks(root: str, inputs, one_scaffold: str, one_pair: str,
+                must_scaffold) -> dict:
+    """Phase 7: two processes on the card."""
+    by_path = {}
+    # 7a: scaffold gap_fill over the shared-directory transport, the built
+    # package of this checkout
+    t0 = time.perf_counter()
+    dirs, launches, ok = run_ranks(
+        root, "p7a", SCAF2_ARGV, inputs,
+        {"NTLINK_GROUP_DIR": os.path.join(root, "group")}, REPO)
+    if not ok:
+        fail("phase 7a: a rank failed")
+    log(f"phase 7a: scaffold gap_fill as two ranks over NTLINK_GROUP_DIR: "
+        f"{time.perf_counter() - t0:.1f} s; sketch kernel launches by rank "
+        f"{launches}")
+    for pid, d in enumerate(dirs):
+        if launches[pid] == 0:
+            fail(f"phase 7a: rank {pid} launched no sketch kernel")
+        same_tree(f"phase 7a rank {pid}", one_scaffold, d, must_scaffold,
+                  what="one process == this rank")
+        by_path[f"7a rank {pid} (group dir)"] = launches[pid]
+    # 7b: pair over the coordinator transport (gloo), from a copy of the
+    # package in which nothing is built: both ranks reach the first-use
+    # builds of the kernel and the C modules at once
+    fresh = os.path.join(root, "fresh")
+    shutil.copytree(
+        os.path.join(REPO, "ntlink_tpu_torch"),
+        os.path.join(fresh, "ntlink_tpu_torch"),
+        ignore=shutil.ignore_patterns("_build", "*.so", "__pycache__"),
+    )
+    t0 = time.perf_counter()
+    for attempt in range(2):  # the free port can be taken before the bind
+        dirs, launches, ok = run_ranks(
+            root, "p7b", PAIR2_ARGV, inputs,
+            {"NTLINK_COORDINATOR": f"127.0.0.1:{free_port()}"}, fresh)
+        if ok:
+            break
+        if attempt:
+            fail("phase 7b: a rank failed twice")
+    built = sorted(os.listdir(os.path.join(fresh, "ntlink_tpu_torch",
+                                           "_build")))
+    natives = [f for f in os.listdir(
+        os.path.join(fresh, "ntlink_tpu_torch", "native"))
+        if f.endswith(".so")]
+    if len(built) != 1 or any(".tmp" in f for f in built) \
+            or len(natives) < 4 or any(f.startswith(".") for f in natives):
+        fail(f"phase 7b: the concurrent first-use builds left {built} and "
+             f"{natives}")
+    log(f"phase 7b: pair as two ranks over NTLINK_COORDINATOR (gloo), "
+        f"nothing built beforehand: {time.perf_counter() - t0:.1f} s; both "
+        f"ranks built {built} and {len(natives)} C modules; sketch kernel "
+        f"launches by rank {launches}")
+    pair_names = [PREFIX + a for a in ARTIFACTS] + [CONTIG_TSV]
+    for pid, d in enumerate(dirs):
+        if launches[pid] == 0:
+            fail(f"phase 7b: rank {pid} launched no sketch kernel")
+        same_tree(f"phase 7b rank {pid}", one_pair, d, pair_names,
+                  what="one process == this rank")
+        by_path[f"7b rank {pid} (gloo)"] = launches[pid]
+    return by_path
+
+
+def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
+    """Phase 8: the card named twice. Every run maps on the contig sketch
+    of the one-process run; the first, on the card named once, gives the
+    peak device memory that the others are read beside."""
+    by_path = {}
+    one_peak = 0
+    links = [os.path.join(data, f) for f in
+             ("target.fa", "reads1.fa", "reads2.fa", "reads2k.fa")]
+    links.append(os.path.join(one_pair, CONTIG_TSV))
+    runs = (
+        ("one device", PAIR2_ARGV, ARTIFACTS, "replicated", TWO_CARDS[:1]),
+        ("two replicas", PAIR2_ARGV, ARTIFACTS, "replicated", TWO_CARDS),
+        ("two replicas, lean", PAIR2_ARGV + ["verbose=False"], ARTIFACTS[:2],
+         "replicated", TWO_CARDS),
+        ("hash idx_shards=2", PAIR2_ARGV + ["index_sharding=hash",
+                                            "idx_shards=2"], ARTIFACTS,
+         "hash", TWO_CARDS),
+    )
+    for i, (name, argv, arts, layout, cards) in enumerate(runs):
+        d = make_dir(root, f"p8_{i}", links)
+        sketch_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        cfg = cli.parse(argv)[1]
+        run_in(d, lambda: pipeline.pair_stage(cfg, device=cards))
+        torch.cuda.synchronize()
+        mapper = pipeline.last_mapper
+        peak = torch.cuda.max_memory_allocated(dev)
+        one_peak = one_peak or peak
+        n = mapper.device_reads + mapper.host_fallbacks
+        if mapper.n_devices != len(cards) or mapper.index_sharding != layout:
+            fail(f"phase 8 ({name}): ran {mapper.layout()}")
+        per_dev = mapper.launches_by_device()
+        if sketch_cuda.launches == 0 or min(per_dev) == 0:
+            fail(f"phase 8 ({name}): launches {per_dev}")
+        log(f"phase 8 ({name}): {mapper.layout()}; {n} reads in "
+            f"{mapper.stream_seconds:.3f} s = "
+            f"{n / mapper.stream_seconds:.1f} reads/s (one card shared, not "
+            f"a scaling number; prechained={mapper.prechained}, "
+            f"runs_only={mapper.runs_only}); sketch kernel launches "
+            f"{sketch_cuda.launches}, by replica {per_dev}; peak device "
+            f"memory of the mapping {peak / 2**20:.1f} MiB (one device: "
+            f"{one_peak / 2**20:.1f} MiB)")
+        same_bytes(f"phase 8 ({name})", one_pair, d,
+                   [PREFIX + a for a in arts])
+        by_path[f"8 {name}"] = sketch_cuda.launches
+    # hash-sharded with repeats=True (hash planes through the sharded join)
+    # on 2,000 reads, against one device
+    rep_one = make_dir(root, "p8_rep_one", links)
+    run_in(rep_one, lambda: pipeline.pair_stage(
+        cli.parse(REPEATS_ARGV)[1], device=dev))
+    rep_hash = make_dir(root, "p8_rep_hash", links)
+    sketch_cuda.launches = 0
+    run_in(rep_hash, lambda: pipeline.pair_stage(
+        cli.parse(REPEATS2_ARGV)[1], device=TWO_CARDS))
+    mapper = pipeline.last_mapper
+    if mapper.index_sharding != "hash" or not mapper.with_hashes \
+            or sketch_cuda.launches == 0:
+        fail(f"phase 8 (hash, repeats): ran {mapper.layout()}")
+    log(f"phase 8 (hash, repeats): {mapper.layout()}; "
+        f"{sketch_cuda.launches} sketch kernel launches")
+    same_bytes("phase 8 (hash, repeats)", rep_one, rep_hash,
+               [PREFIX + a for a in ARTIFACTS])
+    by_path["8 hash, repeats"] = sketch_cuda.launches
+    sketch_cuda.launches = 0
+    graft_entry.dryrun_multichip(2, devices=TWO_CARDS)
+    fn, args = graft_entry.entry(dev)
+    out = fn(*args)
+    torch.cuda.synchronize()
+    if sketch_cuda.launches == 0 or int(out[:8].sum()) == 0:
+        fail("phase 8: the dryruns launched no kernel or found no anchor")
+    log(f"phase 8: graft_entry.dryrun_multichip(2) and entry() on "
+        f"{TWO_CARDS}: passed, {sketch_cuda.launches} sketch kernel launches")
+    by_path["8 dryruns"] = sketch_cuda.launches
+    return by_path
+
+
+def phase_tracing(root: str, inputs, one_scaffold: str, must) -> dict:
+    """Phase 9: v=1 with the profile hook."""
+    d = make_dir(root, "p9", inputs)
+    prof_dir = os.path.join(root, "prof")
+    tracer = tracing.GLOBAL
+    tracer.torch_profile_dir = prof_dir
+    sketch_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        rc = run_in(d, lambda: cli.main(SCAF2_ARGV + ["v=1"]))
+    finally:
+        tracer.enabled = False
+        tracer.torch_profile_dir = None
+    torch.cuda.synchronize()
+    if rc != 0:
+        fail(f"phase 9: scaffold gap_fill v=1 exited {rc}")
+    walls = {s.name: s.wall_s for s in tracer.spans}
+    tracer.spans.clear()
+    log(f"phase 9: scaffold gap_fill v=1 under NTLINK_TORCH_PROFILE: "
+        f"{time.perf_counter() - t0:.1f} s")
+    trace_json = os.path.join(d, PREFIX + ".trace.json")
+    with open(trace_json) as fh:
+        names = [s["name"] for s in json.load(fh)]
+    if names != SPANS:
+        fail(f"phase 9: spans {names}")
+    os.remove(trace_json)
+    same_tree("phase 9", one_scaffold, d, must, what="without v == with v=1")
+    for span in SPANS:
+        path = os.path.join(prof_dir, span, "trace.json")
+        if not (os.path.exists(path) and os.path.getsize(path) > 0):
+            fail(f"phase 9: no Chrome trace for {span}")
+    split = tracing.stage_device_times(
+        os.path.join(prof_dir, "pair/map-reads", "trace.json"))
+    missing = [r for r in STEP_RANGES
+               if split["stages"].get(r, {}).get("us", 0) <= 0]
+    if missing:
+        fail(f"phase 9: no device time under {missing}")
+    kernel_us = sum(us for name, us in split["kernels"].items()
+                    if SKETCH_KERNEL in name)
+    if kernel_us <= 0:
+        fail(f"phase 9: the map-reads trace does not hold {SKETCH_KERNEL}")
+    total = split["total_us"]
+    wall = walls["pair/map-reads"]
+    log(f"phase 9: {len(SPANS)} spans in order, one trace each; "
+        f"pair/map-reads (default run, profiler on): device time "
+        f"{total / 1e3:.3f} ms = {total / 1e6 / wall:.2%} of its "
+        f"{wall:.3f} s wall; {SKETCH_KERNEL} {kernel_us / 1e3:.3f} ms")
+    for name, row in sorted(split["stages"].items(),
+                            key=lambda kv: -kv[1]["us"]):
+        log(f"phase 9:   {name:<24} {row['us'] / 1e3:9.3f} ms "
+            f"{row['us'] / total:7.2%} ({row['events']} kernels and copies)")
+    log(f"phase 9:   {'(outside every range)':<24} "
+        f"{split['unattributed_us'] / 1e3:9.3f} ms "
+        f"{split['unattributed_us'] / total:7.2%}")
+    return {"9 scaffold gap_fill v=1": sketch_cuda.launches}
+
+
+def phase_numpy(root: str, inputs, one_pair: str) -> None:
+    """Phase 10: backend=numpy with no CUDA device visible."""
+    d = make_dir(root, "p10", inputs)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NTLINK_")}
+    env.update(PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "ntlink_tpu_torch", *PAIR2_ARGV,
+         "backend=numpy", "t=8"],
+        cwd=d, env=env, capture_output=True, text=True,
+        timeout=RANK_TIMEOUT_S,
+    )
+    if res.returncode != 0:
+        fail(f"phase 10: backend=numpy exited {res.returncode}:\n"
+             f"{res.stderr[-3000:]}")
+    if "sketch kernel launch" in res.stderr or \
+            "device=none" not in res.stdout:
+        fail("phase 10: backend=numpy reached for a device")
+    log(f"phase 10: pair backend=numpy t=8, no CUDA device visible: "
+        f"{time.perf_counter() - t0:.1f} s")
+    same_tree("phase 10", one_pair, d,
+              [PREFIX + a for a in ARTIFACTS] + [CONTIG_TSV],
+              what="card == host")
+
+
+def phase_new_paths(dev) -> dict:
+    """Phases 7-10 on the smaller draft with its reads in two files; the
+    references are one-process, one-device card runs of the port's CLI."""
+    kwz = "k32.w100.z1000"
+    must = [f"target.fa.{kwz}.ntLink.scaffolds.gap_fill.fa",
+            f"target.fa.{kwz}.ntLink.scaffolds.fa",
+            f"target.fa.{kwz}.trimmed_scafs.agp",
+            PREFIX + ".verbose_mapping.tsv", PREFIX + ".n1.scaffold.dot"]
+    with tempfile.TemporaryDirectory(prefix="ntlink_smoke_") as root:
+        data = os.path.join(root, "data")
+        os.makedirs(data)
+        write_dataset(data, label="phase 7", **SMALL)
+        split_read_files(data)
+        inputs = [os.path.join(data, f)
+                  for f in ("target.fa", "reads1.fa", "reads2.fa")]
+        one_scaffold = make_dir(root, "one_scaffold", inputs)
+        t0 = time.perf_counter()
+        if run_in(one_scaffold, lambda: cli.main(SCAF2_ARGV)) != 0:
+            fail("phase 7: the one-process scaffold run failed")
+        log(f"phase 7: one process, scaffold gap_fill on the card: "
+            f"{time.perf_counter() - t0:.1f} s")
+        one_pair = make_dir(root, "one_pair", inputs)
+        card_pair(one_pair, PAIR2_ARGV, dev, "phase 7 (one process, pair)")
+        by_path = phase_ranks(root, inputs, one_scaffold, one_pair, must)
+        by_path.update(phase_replicas(dev, root, data, one_pair))
+        by_path.update(phase_tracing(root, inputs, one_scaffold, must))
+        phase_numpy(root, inputs, one_pair)
+    return by_path
 
 
 def phase_probe(dev) -> dict:
@@ -685,6 +1074,21 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    try:
+        result = run_phases()
+    finally:
+        left = stop_children()
+    if left:
+        fail(f"processes still running after the last phase: {left}")
+    for line in result:
+        print(line)
+    sys.stdout.flush()
+    return 0
+
+
+def run_phases() -> list:
+    """Every phase in order; returns the two JSON lines that end the
+    output, printed once no process of the run is left."""
     dev = torch.device("cuda", 0)
     smi = phase_environment()
     kern = phase_kernel(dev)
@@ -692,10 +1096,12 @@ def main() -> int:
     counts = phase_slice(dev)
     rounds = phase_rounds(dev)
     bench = phase_bench(dev)
+    new_paths = phase_new_paths(dev)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
     counts["launches_by_path"]["6 kernel bench"] = bench["sketch_rows"]
+    counts["launches_by_path"].update(new_paths)
     log(f"nvidia-smi: {smi}")
-    print(json.dumps({"kernels": [{
+    kernels = json.dumps({"kernels": [{
         "name": "sketch_rows",
         "route": "cuda",
         "source": KERNEL_SOURCE,
@@ -711,13 +1117,12 @@ def main() -> int:
         "launches": bench["alu_peak"],
         "launches_by_path": {"6 kernel bench": bench["alu_peak"]},
         **probe,
-    }]}))
-    print(json.dumps({"ok": True, "device": {
+    }]})
+    return [kernels, json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
-    }}), flush=True)
-    return 0
+    }})]
 
 
 if __name__ == "__main__":

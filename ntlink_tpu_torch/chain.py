@@ -17,6 +17,11 @@ the lane count exists (the JAX key overflows past 2^18 lanes).
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
+
+#: the `record_function` ranges of this module (each function below runs
+#: inside one; without a profiler a range is an empty call)
+STAGES = ("chain/accept", "chain/run-summary")
 
 #: run lanes per read; a read with more runs is chained on the exact host
 #: path (mesh.RUN_LANES)
@@ -64,6 +69,7 @@ def _mask_lanes(mask: torch.Tensor, n: int):
     return lanes[:, :n], valid
 
 
+@record_function("chain/accept")
 def chain_anchors_device(found, cid, cpos, rlens, clen, z: int, k: int):
     """Chaining acceptance over (B, S) anchor planes (found bool, cid and
     cpos int32), read lengths `rlens` (B,) and contig lengths `clen` (NC,).
@@ -136,6 +142,7 @@ def chain_anchors_device(found, cid, cpos, rlens, clen, z: int, k: int):
     return keep & ~overflow[:, None], overflow
 
 
+@record_function("chain/run-summary")
 def summarize_runs_device(keep, cid, cpos, rposw):
     """Per-read merged runs of the accepted anchors: consecutive kept
     anchors with the same cid form one run (chain.c's prechained grouping).

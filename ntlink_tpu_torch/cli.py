@@ -12,10 +12,18 @@ The targets, parameter names and parsing of ``ntlink_tpu.cli``. `pair`, `scaffol
 card and exit non-zero when there is none; backend=auto and backend=jax
 run on the card alone, backend=hybrid splits the contig sketch and the
 read mapping between the card and the host's C path (hybrid_host_frac pins
-the host's share). `fac`, `liftover`, `clean`, `extra_clean` and `version`
-are host code and need no card. Not yet ported, and
-refused: v (tracing), backend=numpy (use ``python -m ntlink_tpu``),
-index_sharding=hash, idx_shards, multi-process runs.
+the host's share). backend=numpy asks for the host by name: it resolves no
+device and runs with none visible; it is never taken because a card is
+missing. With several visible cards the read batches split over them with
+the index replicated on each, or hash-sharded over a (data, idx) grid with
+index_sharding=hash [idx_shards=N]; with one card hash runs replicated.
+v=1 prints the stage trace and writes <prefix>.trace.json;
+NTLINK_TORCH_PROFILE=<dir> adds one torch.profiler Chrome trace per stage.
+NTLINK_NUM_PROCESSES, NTLINK_PROCESS_ID and NTLINK_GROUP_DIR (a shared
+directory) or NTLINK_COORDINATOR (host:port, torch.distributed over gloo)
+start one of several processes that split the read files. `fac`,
+`liftover`, `clean`, `extra_clean` and `version` are host code and need no
+card.
 """
 from __future__ import annotations
 
@@ -136,7 +144,9 @@ def parse(argv: List[str]):
 
 def dispatch(targets: List[str], cfg: ScaffoldConfig, rounds: int,
              device) -> str:
-    """Run the device targets on `device` in ``ntlink_tpu.cli``'s order of
+    """Run the device targets on `device` (`pipeline.split_devices`: None
+    for every visible card, a device, a sequence of devices, or
+    `device.HOST_ONLY` with backend=numpy) in ``ntlink_tpu.cli``'s order of
     precedence; returns the path of the final artifact."""
     from . import pipeline
 
@@ -217,18 +227,23 @@ def main(argv: List[str] | None = None) -> int:
         print("ERROR: Must set target and reads", file=sys.stderr)
         return 2
 
-    from . import device, pipeline
+    from . import device, pipeline, tracing
 
     try:
         pipeline.check_supported(cfg)
-        dev = device.resolve("cuda")
+        # backend=numpy is the host by name: no device is looked for
+        dev = (device.HOST_ONLY if cfg.backend == "numpy"
+               else device.resolve("cuda"))
     except (RuntimeError, ValueError) as exc:
         print(f"ERROR: {exc}", file=sys.stderr)
         return 2
+    if cfg.v:
+        tracing.enable()
     print("ntlink_tpu_torch parameters:")
     for field in ("target", "reads", "k", "w", "t", "z", "n", "a", "f", "x",
                   "overlap", "sensitive", "repeats", "verbose", "paf",
-                  "pairs_tsv", "backend", "hybrid_host_frac"):
+                  "pairs_tsv", "backend", "hybrid_host_frac",
+                  "index_sharding", "idx_shards", "v"):
         print(f"\t{field}={getattr(cfg, field)}")
     print(f"\tprefix={cfg.resolved_prefix()}")
     # what the knobs ask for; the mapper's own line says what ran (the
@@ -236,8 +251,15 @@ def main(argv: List[str] | None = None) -> int:
     prechained, runs_only = pipeline.requested_modes(cfg)
     print(f"\tprechained={prechained}")
     print(f"\truns_only={runs_only}")
-    print(f"\tdevice={dev} ({torch.cuda.get_device_name(dev)})")
-    dispatch(targets, cfg, rounds, dev)
+    if dev == device.HOST_ONLY:
+        print("\tdevice=none (backend=numpy runs on the host)")
+        dispatch(targets, cfg, rounds, dev)
+        return 0
+    n_cards = torch.cuda.device_count()
+    print(f"\tdevice={dev} ({torch.cuda.get_device_name(dev)}); "
+          f"{n_cards} visible")
+    # None: the contig sketch on the first card, the read mapper on all
+    dispatch(targets, cfg, rounds, None)
     return 0
 
 

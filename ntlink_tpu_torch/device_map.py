@@ -1,7 +1,6 @@
-"""Batched read mapping on one device: sketch + index join in PyTorch.
+"""Batched read mapping on torch devices: sketch + index join in PyTorch.
 
-Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper`` on one device.
-Reads stream into (pad, has_n)-bucketed, 2-bit packed
+Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper``. Reads stream into (pad, has_n)-bucketed, 2-bit packed
 (B, pad/4) batches, N-containing reads with a 1-bit mask of their non-ACGT
 bases (``stream_pipeline.split_n_rows``); one `mapping_step.mapping_step`
 per batch sketches them (the Hopper kernel on a CUDA device), joins the
@@ -27,9 +26,20 @@ chain.c for the prechained and runs payloads) and are counted in
 minimizers overflow the slot budget or whose runs overflow RUN_LANES.
 Every path gives the same raw payload as ``DeviceMapper`` and
 ``HostMapper`` with the same arguments.
+
+With several devices (`devices=`, default every visible CUDA device; one
+device may be named several times) the index is replicated: each device
+holds its own `DeviceIndex` and contig lengths, a batch's rows split into
+contiguous blocks, each device runs `mapping_step` on its block on a
+stream of its own (``mesh.make_sharded_mapping_step``'s data axis), and the
+blocks' payloads are read back in row order, so every read's payload is
+the one-device payload. `index_sharding="hash"` shards the table instead
+over a (data, idx) grid (`parallel.sharded_index`); it chains on the host,
+and with one device it runs replicated, as ``DeviceMapper`` does.
 """
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 from typing import Dict, Iterable, Iterator, List, Tuple
@@ -45,6 +55,9 @@ from .mapping_step import DeviceIndex, mapping_step, pack_codes
 from .native import chain_module, fastx_module, sketch_module
 from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
+from .parallel.sharded_index import (
+    ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
+)
 from .stream_pipeline import DevicePipeline, next_pow2, split_n_rows
 
 
@@ -59,6 +72,40 @@ class _Remap:
         self.codes = codes
 
 
+def default_idx_shards(n_devices: int) -> int:
+    """Largest power-of-two divisor of the device count (capped at 4):
+    make_mesh_2d needs idx_shards | n_devices and the sharded table needs a
+    pow2 shard count (e.g. 6 devices -> 2, not 4; 3 devices -> 1)."""
+    s = 1
+    while s < 4 and n_devices % (s * 2) == 0:
+        s *= 2
+    return s
+
+
+class Replica:
+    """One device's share of the replicated layout: its index and contig
+    lengths, and on a CUDA device that is one of several the stream its
+    batches run on."""
+
+    def __init__(self, device: torch.device, didx: DeviceIndex, clen,
+                 own_stream: bool):
+        self.device = device
+        self.didx = didx
+        self.clen = clen
+        self.stream = (
+            torch.cuda.Stream(device)
+            if own_stream and device.type == "cuda" else None
+        )
+        #: sketch kernel launches on this replica
+        self.launches = 0
+
+    def work(self):
+        """Context in which this replica's device calls run."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
+
 def batch_rows(pad: int, batch_bases: int) -> int:
     """Rows of a full device batch at padded length `pad`: the power of two
     nearest above batch_bases / pad (``DeviceMapper``'s batch height)."""
@@ -66,7 +113,7 @@ def batch_rows(pad: int, batch_bases: int) -> int:
 
 
 class TorchMapper:
-    """Raw-payload read mapper on one torch device (``DeviceMapper``'s
+    """Raw-payload read mapper on torch devices (``DeviceMapper``'s
     contract: `contig_names`, `_contig_order`, `prechained`, `runs_only`,
     `host_fallbacks`, `map_stream_raw`, `map_stream`)."""
 
@@ -77,8 +124,15 @@ class TorchMapper:
 
     def __init__(self, index: ContigIndex, k: int, w: int,
                  batch_bases: int = 8_000_000, device=None, prechain=None,
-                 runs_only: bool = False, with_hashes: bool = False):
-        self.device = device_mod.resolve(device)
+                 runs_only: bool = False, with_hashes: bool = False,
+                 devices=None, index_sharding: str = "replicated",
+                 idx_shards: int = 0):
+        self.devices = device_mod.resolve_all(device, devices)
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices)
+        if index_sharding == "hash" and self.n_devices == 1:
+            index_sharding = "replicated"  # nothing to shard over
+        self.index_sharding = index_sharding
         index.finalize()
         self.index = index
         self.k, self.w = k, w
@@ -87,16 +141,18 @@ class TorchMapper:
         self._contig_order = {n: i for i, n in enumerate(index.contig_names)}
         self.with_hashes = bool(with_hashes)
         # on-device chaining when `prechain` = (contig lengths in contig-id
-        # order, z) and DeviceMapper's gates hold (no hash planes: the
+        # order, z) and DeviceMapper's gates hold (a replicated index: the
+        # hash-sharded step keeps host chaining; no hash planes: the
         # repeat filter must run before chaining);
         # `_host_map_raw` reads `prechained`, `runs_only`, `_chain_sel` and
         # `_chain_z`, so fallback rows ship the same payload kind
         self.prechained = False
-        self._clen_dev = None
+        clen_np = None
         self._chain_z = 0
         self._chain_sel = None
         if (
             prechain is not None
+            and index_sharding != "hash"
             and not self.with_hashes
             and len(index.contig_names) <= CHAIN_MAX_CONTIGS
         ):
@@ -104,12 +160,37 @@ class TorchMapper:
             if cm is not None:  # exact host chaining for fallback rows
                 clen_arr, z = prechain
                 clen_np = np.ascontiguousarray(clen_arr, dtype=np.int32)
-                self._clen_dev = torch.from_numpy(clen_np).to(self.device)
                 self._chain_z = int(z)
                 self._chain_sel = cm.Chainer(clen_np, index.contig_names)
                 self.prechained = True
         self.runs_only = bool(runs_only) and self.prechained
-        self.didx = DeviceIndex.from_contig_index(index, self.device)
+        self._replicas: List[Replica] = []
+        self._hash_steps: Dict[int, object] = {}
+        if index_sharding == "hash":
+            self.idx_shards = idx_shards or default_idx_shards(self.n_devices)
+            self.didx = ShardedDeviceIndex.from_contig_index(
+                index, self.idx_shards)
+            self._mesh2d = make_mesh_2d(self.idx_shards, self.devices)
+        else:
+            self.idx_shards = 1
+            table = DeviceIndex.build_table(
+                index.hashes, index.contig_ids, index.positions,
+                index.strands)
+            on_device: Dict[torch.device, tuple] = {}
+            for dev in self.devices:
+                if dev not in on_device:  # one copy per device
+                    on_device[dev] = (
+                        DeviceIndex.from_numpy(*table, device=dev),
+                        None if clen_np is None
+                        else torch.from_numpy(clen_np).to(dev),
+                    )
+                self._replicas.append(
+                    Replica(dev, *on_device[dev],
+                             own_stream=self.n_devices > 1))
+            self.didx = self._replicas[0].didx
+            for dev in on_device:
+                if dev.type == "cuda" and self.n_devices > 1:
+                    torch.cuda.synchronize(dev)  # tables are in place
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0
@@ -123,6 +204,36 @@ class TorchMapper:
     def _slots_for(self, L: int) -> int:
         """Minimizer slot budget for padded length L (density ~2/(w+1))."""
         return next_pow2(max(128, int(2.5 * L / (self.w + 1)) + 64))
+
+    def _hash_step_for(self, L: int):
+        """The hash-sharded mapping step for padded length L, made once."""
+        if L not in self._hash_steps:
+            self._hash_steps[L] = make_sharded_index_mapping_step(
+                self._mesh2d, self.didx, self.k, self.w, L,
+                self._slots_for(L), with_hashes=self.with_hashes,
+            )
+        return self._hash_steps[L]
+
+    def layout(self) -> str:
+        """The index layout that runs, for the summary line."""
+        if self.index_sharding == "hash":
+            return (
+                f"index hash-sharded over a {len(self._mesh2d)} x "
+                f"{self.idx_shards} (data, idx) grid of "
+                f"{[str(d) for d in self.devices]}"
+            )
+        if self.n_devices == 1:
+            return f"{self.device}, index replicated"
+        return (f"index replicated on {self.n_devices} devices "
+                f"{[str(d) for d in self.devices]}")
+
+    def launches_by_device(self) -> List[int]:
+        """Sketch kernel launches of each replica (replicated layout), or
+        of the whole grid in one entry (hash-sharded: every cell launches
+        once per batch)."""
+        if self.index_sharding == "hash":
+            return [self.kernel_launches]
+        return [rep.launches for rep in self._replicas]
 
     def _host_map_raw(self, codes: np.ndarray):
         """Host fallback producing the raw array payload (exact path):
@@ -266,58 +377,104 @@ class TorchMapper:
                          row_codes))
 
         def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
-            # feeder thread: every device call of the batch
+            # feeder thread: every device call of the batch. Each block of
+            # rows goes to its device in turn; the calls return before the
+            # device is done, so the devices work at once
             pad = key[0]
             slots = self._slots_for(pad)
             self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
-            p, ln, nm = to_device(self.device, packed, lengths, nmask)
-            out = mapping_step(
-                p, ln, self.didx, self.k, self.w, pad, slots, nmask=nm,
-                clen=self._clen_dev, z=self._chain_z, runs=self.runs_only,
-                with_hashes=self.with_hashes,
-            )
-            pipe.submit_drain((*copy_back(out), len(lengths), slots, rows,
-                               row_codes))
+            B = len(lengths)
+            blocks = []
+            if self.index_sharding == "hash":
+                step = self._hash_step_for(pad)
+                origin = step.cells[0][0]
+                out = step(*pinned(origin.device, packed, lengths),
+                           nmask=pinned(origin.device, nmask)[0])
+                with origin.work():
+                    blocks.append((*copy_back(out["flat"]), 0, B))
+            else:
+                n = self.n_devices
+                bounds = [B * d // n for d in range(n + 1)]
+                for rep, lo, hi in zip(self._replicas, bounds, bounds[1:]):
+                    if lo >= min(hi, len(rows)):
+                        continue  # no row, or padding rows alone
+                    with rep.work():
+                        launches = sketch_cuda.launches
+                        p, ln, nm = to_device(
+                            rep.device, packed[lo:hi], lengths[lo:hi],
+                            None if nmask is None else nmask[lo:hi])
+                        out = mapping_step(
+                            p, ln, rep.didx, self.k, self.w, pad, slots,
+                            nmask=nm, clen=rep.clen, z=self._chain_z,
+                            runs=self.runs_only,
+                            with_hashes=self.with_hashes,
+                        )
+                        rep.launches += sketch_cuda.launches - launches
+                        blocks.append((*copy_back(out), lo, hi))
+            pipe.submit_drain((blocks, slots, rows, row_codes))
 
-        def drain(out, event, B, slots, rows, row_codes) -> None:
-            if event is not None:
-                event.synchronize()
-            flat = out.numpy()
-            count, n_mins = flat[:B], flat[B : 2 * B]
+        def drain(blocks, slots, rows, row_codes) -> None:
+            # the blocks in row order: each read's result lands under its
+            # own index, so overflow rows and reads of other blocks keep
+            # their place in the stream
+            for out, event, lo, hi in blocks:
+                if event is not None:
+                    event.synchronize()
+                flat = out.numpy()
+                B = hi - lo
+                if flat.ndim == 2:
+                    # hash-sharded step: meta in row 0, then the planes,
+                    # with (cid, cpos) packed into one gpos plane when the
+                    # index packs positions
+                    count, n_mins = flat[0, :B], flat[0, B : 2 * B]
+                    planes = list(flat[1:])
+                    if self.didx.t_off is not None:
+                        total = int(count.sum())
+                        cid, cpos = self.didx.decode_gpos(planes[1][:total])
+                        planes[1:2] = [cid, cpos]
+                else:
+                    count, n_mins = flat[:B], flat[B : 2 * B]
+                    lanes = B * (RUN_LANES if self.runs_only else slots)
+                    planes = flat[2 * B :].reshape(-1, lanes)
+                drain_block(count, n_mins, planes, lo, min(hi, len(rows)),
+                            slots, rows, row_codes)
+
+        def drain_block(count, n_mins, planes, lo, hi, slots, rows,
+                        row_codes) -> None:
+            """Batch rows lo..hi-1 (rows 0.. of this block's payload)."""
             if self.runs_only:
                 # run-lane overflow reports RUN_LANES + 1 in n_mins
                 slots = RUN_LANES
-                planes = flat[2 * B :].reshape(6, B * slots)
                 total = int(count.sum())
                 cid, cnt, f_cpos, l_cpos, f_rw, l_rw = planes[:, :total]
                 runs = np.stack([
                     cid, cnt, f_cpos, f_rw & 0x1FFFFFFF, (f_rw >> 29) & 3,
                     l_cpos, l_rw & 0x1FFFFFFF, (l_rw >> 29) & 3,
                 ], axis=1)
-            else:
-                planes = flat[2 * B :].reshape(-1, B * slots)
-            offs = np.zeros(B + 1, np.int64)
+            offs = np.zeros(len(count) + 1, np.int64)
             np.cumsum(count, out=offs[1:])
-            for row, i in rows.items():
-                n = int(count[row])
-                if n_mins[row] > slots:
+            for row in range(lo, hi):
+                i = rows[row]
+                r = row - lo
+                n = int(count[r])
+                if n_mins[r] > slots:
                     results[i] = _Remap(row_codes[row])
                     continue
                 if n == 0:
                     results[i] = None
                     continue
-                o = int(offs[row])
+                o = int(offs[r])
                 if self.runs_only:
                     results[i] = (n, runs[o : o + n])
                     continue
-                rw = planes[0, o : o + n]
+                rw = planes[0][o : o + n]
                 if self.with_hashes:
-                    hi, lo = planes[3, o : o + n], planes[4, o : o + n]
+                    hi_, lo_ = planes[3][o : o + n], planes[4][o : o + n]
                 else:
-                    hi = lo = np.zeros(n, np.int32)
+                    hi_ = lo_ = np.zeros(n, np.int32)
                 results[i] = (
-                    n, rw & 0x1FFFFFFF, planes[1, o : o + n],
-                    planes[2, o : o + n], (rw >> 29) & 3, hi, lo,
+                    n, rw & 0x1FFFFFFF, planes[1][o : o + n],
+                    planes[2][o : o + n], (rw >> 29) & 3, hi_, lo_,
                 )
 
         pipe = DevicePipeline(dispatch, drain, depth=self.DEPTH,
@@ -392,7 +549,7 @@ class TorchMapper:
                 else "prechained" if self.prechained else "host-chained"
             )
             print(
-                f"# ntlink_tpu_torch device-map ({self.device}, {mode}): {n} "
+                f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
                 f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
                 f"reads/s); {sketch_cuda.launches - launches0} sketch "
                 f"kernel launch(es); so far {self.device_reads} read(s) "
@@ -408,16 +565,32 @@ def to_device(device: torch.device, packed: np.ndarray,
               lengths: np.ndarray, nmask):
     """(packed uint8, lengths int32, nmask uint8 or None) on `device`: one
     host copy each, straight into pinned memory on a CUDA device, and an
-    asynchronous upload."""
+    asynchronous upload on the current stream."""
+    host = pinned(device, packed, lengths, nmask)
+    if device.type != "cuda":
+        return host
+    return tuple(None if t is None else t.to(device, non_blocking=True)
+                 for t in host)
+
+
+_TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32}
+
+
+def pinned(device: torch.device, *arrays):
+    """Host tensors of `arrays` (None stays None), in pinned memory when
+    `device` is a CUDA device, so that several devices can each start an
+    asynchronous upload of their share."""
     on_cuda = device.type == "cuda"
-
-    def put(a, dtype):
-        t = torch.empty(a.shape, dtype=dtype, pin_memory=on_cuda)
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(None)
+            continue
+        t = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype.type],
+                        pin_memory=on_cuda)
         t.numpy()[...] = a
-        return t.to(device, non_blocking=True) if on_cuda else t
-
-    return (put(packed, torch.uint8), put(lengths, torch.int32),
-            None if nmask is None else put(nmask, torch.uint8))
+        out.append(t)
+    return tuple(out)
 
 
 def copy_back(out: torch.Tensor):

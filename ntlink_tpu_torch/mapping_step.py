@@ -18,6 +18,11 @@ start its device-to-host copy without waiting for the step:
     [count (B) | n_minimizers (B) | rposw (B*S) | cid (B*S) | cpos (B*S)
      [| hash_hi (B*S) | hash_lo (B*S)]]
 
+Each stage runs inside a `torch.profiler.record_function` range
+(`STAGES`), so that a profile (`tracing.Tracer`, NTLINK_TORCH_PROFILE)
+reads by stage and not only by kernel name; without a profiler a range is
+an empty call.
+
 `rposw` = rpos | cstrand << 29 | fwd << 30, the hash planes (only with
 `with_hashes`, for the repeat filter) hold the reported hash's uint32
 halves (``mesh.py:737-738``), and the anchor planes hold
@@ -29,10 +34,17 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .chain import RUN_LANES, chain_anchors_device, summarize_runs_device
 from .ops.sketch_cuda import sketch_rows
 from .ops.sketch_torch import compact_windows, finish_hash, shr
+
+#: the `record_function` ranges of `mapping_step` and `sketch_step` (the
+#: chain stages are `chain.STAGES`)
+STAGES = ("mapping_step/unpack", "mapping_step/sketch",
+          "mapping_step/n-windows", "mapping_step/select",
+          "mapping_step/join", "mapping_step/compact")
 
 _FIB = 0x9E3779B1  # 32-bit Fibonacci hashing constant (mesh.py:29)
 BUCKET = 8
@@ -231,11 +243,14 @@ def sketch_batch(packed: torch.Tensor, lengths: torch.Tensor, k: int,
     strand planes are right on every k-mer that covers no such base, and
     the windows are taken again over the valid k-mers
     (`sketch_torch.compact_windows`)."""
-    can, fwd, winner, emit = sketch_rows(unpack_codes(packed, L), lengths,
-                                         k, w)
+    with record_function("mapping_step/unpack"):
+        codes = unpack_codes(packed, L)
+    with record_function("mapping_step/sketch"):
+        can, fwd, winner, emit = sketch_rows(codes, lengths, k, w)
     if nmask is not None:
-        winner, emit = compact_windows(can, unpack_bits(nmask, L), lengths,
-                                       k, w)
+        with record_function("mapping_step/n-windows"):
+            winner, emit = compact_windows(can, unpack_bits(nmask, L),
+                                           lengths, k, w)
     return can, fwd, winner, emit
 
 
@@ -264,19 +279,21 @@ def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
         raise ValueError("runs payloads carry no hash planes")
     B = packed.shape[0]
     can, fwd, winner, emit = sketch_batch(packed, lengths, k, w, L, nmask)
-    sel, sel_ok, n_min = select_minimizers(emit, slots)
-    m_pos = winner.to(torch.int64).gather(1, sel)
-    h = finish_hash(can.gather(1, m_pos), k)
-    m_fwd = fwd.gather(1, m_pos)
-    found, cid, cpos, cstrand = hash_bucket_join(
-        index.t_bkt, h, index.mask, index.max_probes
-    )
-    found &= sel_ok
-    rposw = (
-        m_pos.to(torch.int32)
-        | (cstrand.to(torch.int32) << 29)
-        | (m_fwd.to(torch.int32) << 30)
-    )
+    with record_function("mapping_step/select"):
+        sel, sel_ok, n_min = select_minimizers(emit, slots)
+        m_pos = winner.to(torch.int64).gather(1, sel)
+        h = finish_hash(can.gather(1, m_pos), k)
+        m_fwd = fwd.gather(1, m_pos)
+    with record_function("mapping_step/join"):
+        found, cid, cpos, cstrand = hash_bucket_join(
+            index.t_bkt, h, index.mask, index.max_probes
+        )
+        found &= sel_ok
+        rposw = (
+            m_pos.to(torch.int32)
+            | (cstrand.to(torch.int32) << 29)
+            | (m_fwd.to(torch.int32) << 30)
+        )
     n_rep = n_min
     if clen is not None:
         found, chain_overflow = chain_anchors_device(
@@ -284,19 +301,21 @@ def mapping_step(packed: torch.Tensor, lengths: torch.Tensor,
         )
         if runs:
             valid, *fields = summarize_runs_device(found, cid, cpos, rposw)
-            planes = compact_flat(valid, fields, B * RUN_LANES)
-            over = (n_min > slots) | chain_overflow
-            meta = torch.cat([
-                valid.sum(dim=1), torch.where(over, RUN_LANES + 1, 0),
-            ]).to(torch.int32)
-            return torch.cat([meta] + planes)
+            with record_function("mapping_step/compact"):
+                planes = compact_flat(valid, fields, B * RUN_LANES)
+                over = (n_min > slots) | chain_overflow
+                meta = torch.cat([
+                    valid.sum(dim=1), torch.where(over, RUN_LANES + 1, 0),
+                ]).to(torch.int32)
+                return torch.cat([meta] + planes)
         n_rep = torch.where(chain_overflow, n_min.clamp(min=slots + 1), n_min)
-    fields = (rposw, cid, cpos)
-    if with_hashes:
-        fields += (_lo32_as_i32(shr(h, 32)), _lo32_as_i32(h))
-    planes = compact_flat(found, fields, B * slots)
-    meta = torch.cat([found.sum(dim=1), n_rep]).to(torch.int32)
-    return torch.cat([meta] + planes)
+    with record_function("mapping_step/compact"):
+        fields = (rposw, cid, cpos)
+        if with_hashes:
+            fields += (_lo32_as_i32(shr(h, 32)), _lo32_as_i32(h))
+        planes = compact_flat(found, fields, B * slots)
+        meta = torch.cat([found.sum(dim=1), n_rep]).to(torch.int32)
+        return torch.cat([meta] + planes)
 
 
 def sketch_step(packed: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
@@ -312,15 +331,17 @@ def sketch_step(packed: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     the host; `count` is what it shipped."""
     B = packed.shape[0]
     can, fwd, winner, emit = sketch_batch(packed, lengths, k, w, L, nmask)
-    sel, sel_ok, n_min = select_minimizers(emit, max_mins)
-    m_pos = winner.to(torch.int64).gather(1, sel)
-    h = finish_hash(can.gather(1, m_pos), k)
-    pos_strand = m_pos.to(torch.int32) | (
-        fwd.gather(1, m_pos).to(torch.int32) << 30
-    )
-    planes = compact_flat(
-        sel_ok, (pos_strand, _lo32_as_i32(shr(h, 32)), _lo32_as_i32(h)),
-        B * max_mins,
-    )
-    meta = torch.cat([sel_ok.sum(dim=1), n_min]).to(torch.int32)
-    return torch.cat([meta] + planes)
+    with record_function("mapping_step/select"):
+        sel, sel_ok, n_min = select_minimizers(emit, max_mins)
+        m_pos = winner.to(torch.int64).gather(1, sel)
+        h = finish_hash(can.gather(1, m_pos), k)
+        pos_strand = m_pos.to(torch.int32) | (
+            fwd.gather(1, m_pos).to(torch.int32) << 30
+        )
+    with record_function("mapping_step/compact"):
+        planes = compact_flat(
+            sel_ok, (pos_strand, _lo32_as_i32(shr(h, 32)), _lo32_as_i32(h)),
+            B * max_mins,
+        )
+        meta = torch.cat([sel_ok.sum(dim=1), n_min]).to(torch.int32)
+        return torch.cat([meta] + planes)

@@ -2,7 +2,10 @@
 
 Compiles each module from its source into this directory the first time it
 is needed (no pybind11; plain CPython C API, zlib for the fastx reader).
-Safe to fail: callers fall back to pure Python. The sources and extension
+Safe to fail: callers fall back to pure Python. Safe under concurrent
+first use (several processes of one run starting at once): each compiles
+to a name of its own and renames it into place, so no process ever loads
+a half-written library. The sources and extension
 names are those of ``ntlink_tpu/native``; a process that loads both
 packages gets two module objects, each from its own directory (`load`
 imports by file location and registers nothing in ``sys.modules``).
@@ -34,6 +37,7 @@ def build(name: str = "ntlink_fastx", verbose: bool = False) -> str:
     if os.path.exists(out) and os.path.getmtime(out) >= os.path.getmtime(src):
         return out
     include = sysconfig.get_paths()["include"]
+    tmp = os.path.join(_DIR, f".{name}.{os.getpid()}{suffix}")
     cmd = [
         os.environ.get("CC", "cc"),
         "-O3",
@@ -43,9 +47,14 @@ def build(name: str = "ntlink_fastx", verbose: bool = False) -> str:
         src,
         *libs,
         "-o",
-        out,
+        tmp,
     ]
-    subprocess.run(cmd, check=True, capture_output=not verbose)
+    try:
+        subprocess.run(cmd, check=True, capture_output=not verbose)
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
     return out
 
 

@@ -1,6 +1,6 @@
 """The stages of ntlink_tpu driven through the PyTorch sketcher and mapper.
 
-Counterpart of ``ntlink_tpu/pipeline.py`` on one device. `pair_stage`
+Counterpart of ``ntlink_tpu/pipeline.py``. `pair_stage`
 (:492-589) writes the same artifacts under the same names
 (``<target>.k<k>.w<w>.tsv``, ``<prefix>.n<n>.scaffold.dot``,
 ``.verbose_mapping.tsv``, ``.pairs.tsv``, ``.paf``) through the port's own
@@ -12,6 +12,14 @@ which chains on the device and ships O(runs) payloads under the same gates
 as ``DeviceMapper`` (`_prechain_args`; runs only without verbose or PAF
 output). With backend=hybrid both split their streams with the host's C
 path (`sketch.TorchHybridSketcher`, ``hybrid_map.HybridMapper``).
+backend=numpy is the caller asking for the host by name: contig sketch and
+read mapping run on the host (`HostMapper`, chaining on the consumer
+thread) and no device is resolved or touched. `device` may be a sequence
+of devices: the mapper splits its batches over them (index replicated, or
+hash-sharded with index_sharding=hash) and the contig sketcher uses the
+first. With NTLINK_NUM_PROCESSES > 1 (`parallel.distributed`) every
+process sketches the contigs and maps its share of the read files, and the
+per-file tallies and artifact parts merge in global file order.
 
 `scaffold_stage`, `run_scaffold` and `run_rounds` (:624-781) are the
 reference's flows around the port's `pair_stage`, with the same file names
@@ -30,6 +38,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from . import device as device_mod
 from .config import ScaffoldConfig
 from .device_map import TorchMapper
 from .graphio import graph_from_tally, largest_ntlink_id, read_dot, write_dot
@@ -38,19 +47,23 @@ from .hybrid_map import HybridMapper
 from .index import ContigIndex
 from .mapping import AnchorHit as AH, RunView, chain_read_hits
 from .native import chain_module
-from .ops import sketch_cuda
+from .ops import nthash_np, sketch_cuda
 from .paf import paf_lines
+from .parallel.distributed import (
+    all_gather_file_tallies, maybe_init_distributed, merge_file_parts,
+)
 from .pairs import PairTally, tally_from_checkpoint
 from .seqio import stream_fastx
 from .seqio.fastx import prefetch_files, stream_codes
 from .sketch import TorchHybridSketcher, TorchSketcher, sketch_fasta_to_tsv
 from .tracing import GLOBAL as tracer
 
-BACKENDS = ("auto", "jax", "hybrid")
+BACKENDS = ("auto", "jax", "hybrid", "numpy")
 
-#: the TorchMapper of the latest `pair_stage` that mapped reads, the
-#: HybridMapper around it (backend=hybrid, else None), and the sketcher of
-#: the latest contig sketch (TorchSketcher, or TorchHybridSketcher), for
+#: the TorchMapper of the latest `pair_stage` that mapped reads (None with
+#: backend=numpy), the HybridMapper around it (backend=hybrid, else None),
+#: and the sketcher of the latest contig sketch (TorchSketcher, or
+#: TorchHybridSketcher; None with backend=numpy), for
 #: callers of the CLI that read their counts (`host_fallbacks`,
 #: `device_reads` / `host_reads`, `batches_by_pad`, `stream_seconds`, ...)
 last_mapper = None
@@ -86,28 +99,31 @@ def read_scaffold_lengths(path: str) -> Dict[str, int]:
     return {rec.name: len(rec.seq) for rec in stream_fastx(path)}
 
 
-class NotPorted(ValueError):
-    """A configuration the port does not run yet."""
-
-
 def check_supported(cfg: ScaffoldConfig) -> None:
-    """Raise NotPorted for settings whose path is not ported, and
-    ValueError for a backend name the reference does not know."""
-    if cfg.v > 0:
-        raise NotPorted("not yet ported: v (tracing)")
-    if cfg.backend == "numpy":
-        raise NotPorted(
-            "not yet ported: backend=numpy (the port runs on the card; a "
-            "host-only run is `python -m ntlink_tpu ... backend=numpy`)"
-        )
+    """Raise ValueError for a backend name the reference does not know;
+    every other setting of ``ntlink_tpu`` runs."""
     if cfg.backend not in BACKENDS:
         raise ValueError(f"unknown backend={cfg.backend}")
-    if cfg.index_sharding != "replicated":
-        raise NotPorted(f"not yet ported: index_sharding={cfg.index_sharding}")
-    if cfg.idx_shards:
-        raise NotPorted("not yet ported: idx_shards")
-    if int(os.environ.get("NTLINK_NUM_PROCESSES", "0") or 0) > 1:
-        raise NotPorted("not yet ported: multi-process runs")
+
+
+def split_devices(cfg: ScaffoldConfig, device):
+    """(the contig sketcher's device, the mapper's `devices` or None) for
+    the `device` argument of the flows: None (the card, and every visible
+    card for the mapper), one device, or a sequence of devices.
+    backend=numpy takes no device: `device` must be None or
+    `device.HOST_ONLY`, and both come back as HOST_ONLY."""
+    if cfg.backend == "numpy":
+        if device not in (None, device_mod.HOST_ONLY):
+            raise ValueError(
+                f"backend=numpy runs on the host and takes no device, got "
+                f"{device!r}"
+            )
+        return device_mod.HOST_ONLY, device_mod.HOST_ONLY
+    if device == device_mod.HOST_ONLY:
+        raise ValueError(f"backend={cfg.backend} needs a device")
+    if isinstance(device, (list, tuple)):
+        return device[0], list(device)
+    return device, None if device is None else [device]
 
 
 def requested_modes(cfg: ScaffoldConfig):
@@ -123,19 +139,23 @@ def ensure_contig_sketch_tsv(cfg: ScaffoldConfig, k: int, w: int,
     """Sketch the target assembly on the device to the reference's TSV
     artifact (``ntlink_tpu.pipeline.ensure_contig_sketch_tsv``, :42-57);
     a fresh, non-empty TSV is reused. backend=hybrid shares the stream
-    with the host's C sketcher; auto and jax sketch on the card alone."""
+    with the host's C sketcher; auto and jax sketch on the card alone;
+    numpy (`device` is HOST_ONLY) sketches on the host's cfg.t threads."""
     global last_sketcher
     out = f"{cfg.target}.k{k}.w{w}.tsv"
     if _is_fresh(out, cfg.target) and os.path.getsize(out) > 0:
         log("Reusing sketch", out)
         return out
     log("Sketching", cfg.target, f"(k={k}, w={w})")
-    if cfg.backend == "hybrid":
+    if cfg.backend == "numpy":
+        last_sketcher = None
+    elif cfg.backend == "hybrid":
         last_sketcher = TorchHybridSketcher(device, threads=cfg.t,
                                             host_frac=cfg.hybrid_host_frac)
     else:
         last_sketcher = TorchSketcher(device)
-    sketch_fasta_to_tsv(cfg.target, out, k, w, backend=last_sketcher)
+    sketch_fasta_to_tsv(cfg.target, out, k, w, backend=last_sketcher,
+                        threads=cfg.t)
     return out
 
 
@@ -342,16 +362,41 @@ def _map_reads_runs(cfg, mapper, tally):
     return n_reads
 
 
-def _map_reads_generic(cfg, mapper, tally, contig_lengths, verbose_fh,
-                       paf_fh):
+def _host_hit_stream_codes(cfg, index, codes_iter):
+    """NumPy-backend per-read anchor stream (sketch + dict join on host)."""
+    for name, codes in codes_iter:
+        mins = nthash_np.sketch_codes(codes, cfg.k, cfg.w)
+        mask = index.member_mask(mins.hashes)
+        if not mask.any():
+            yield name, len(codes), []
+            continue
+        hits = []
+        for h, p, f in zip(
+            mins.hashes[mask], mins.positions[mask], mins.forward[mask]
+        ):
+            entry = index.get(int(h))
+            hits.append((
+                entry.contig,
+                AH(int(h), entry.position, entry.strand, int(p),
+                   "+" if f else "-"),
+            ))
+        yield name, len(codes), hits
+
+
+def _map_reads_generic(cfg, mapper, index, tally, contig_lengths,
+                       verbose_fh, paf_fh):
     """General path: per-hit Python objects, taken only when the C chainer
-    did not build."""
+    did not build (`mapper` None: the NumPy sketch and dict join)."""
     n_reads = 0
     for reads_file, codes_iter in prefetch_files(
         cfg.reads, stream_codes, threads=cfg.t
     ):
         log("Mapping reads", reads_file)
-        for name, read_len, hits in mapper.map_stream(codes_iter):
+        if mapper is not None:
+            hit_stream = mapper.map_stream(codes_iter)
+        else:
+            hit_stream = _host_hit_stream_codes(cfg, index, codes_iter)
+        for name, read_len, hits in hit_stream:
             n_reads += 1
             if not hits:
                 continue
@@ -390,7 +435,11 @@ def map_reads(
 ) -> PairTally:
     """Stream read files through sketch -> match -> chain -> tally
     (``ntlink_tpu.pipeline.map_reads``, :369-489, for a mapper the caller
-    built: a TorchMapper, or the HybridMapper around one).
+    built: a TorchMapper, the HybridMapper around one, or with
+    backend=numpy a HostMapper; None only when the C chainer did not build
+    there). Pass `tally`/`mapper` again to accumulate across calls (the
+    per-file sharding of multi-process runs) without rebuilding the index
+    on the device.
 
     Chaining and verbose/PAF rendering run in native C and the repeat
     filter vectorized in NumPy; only a failed C build takes the general
@@ -405,7 +454,8 @@ def map_reads(
     paf_tmp = f"{paf_path}.tmp" if paf_path else None
     verbose_fh = open(verbose_tmp, "wb") if verbose_path else None
     paf_fh = open(paf_tmp, "wb") if paf_path else None
-    chainer = _make_native_chainer(mapper, contig_lengths)
+    chainer = (None if mapper is None
+               else _make_native_chainer(mapper, contig_lengths))
 
     try:
         if getattr(mapper, "runs_only", False):
@@ -424,7 +474,8 @@ def map_reads(
             )
         else:
             n_reads = _map_reads_generic(
-                cfg, mapper, tally, contig_lengths, verbose_fh, paf_fh
+                cfg, mapper, index, tally, contig_lengths, verbose_fh,
+                paf_fh
             )
     except Exception:
         # mirror the reference's partial-output cleanup (ntlink_pair.py:608-613)
@@ -459,10 +510,37 @@ def hybrid_mapper(cfg: ScaffoldConfig, mapper: TorchMapper, index,
     return HybridMapper(mapper, host, cfg.hybrid_host_frac)
 
 
+def make_mapper(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths,
+                devices):
+    """The read mapper of a `pair_stage` (``_make_device_mapper`` and the
+    mapper choice of ``map_reads``, ntlink_tpu/pipeline.py:112-130,
+    :409-452); sets `last_mapper` and `last_hybrid`."""
+    global last_mapper, last_hybrid
+    last_mapper = last_hybrid = None
+    if cfg.backend == "numpy":
+        # host only: chaining stays on the consumer thread (chain_batch),
+        # where it overlaps the workers' sketching
+        host = HostMapper(index, cfg.k, cfg.w, threads=cfg.t)
+        return host if chain_module() is not None else None
+    mapper = last_mapper = TorchMapper(
+        index, cfg.k, cfg.w, batch_bases=cfg.batch_bases, devices=devices,
+        prechain=_prechain_args(cfg, index, contig_lengths),
+        runs_only=not (cfg.verbose or cfg.paf), with_hashes=cfg.repeats,
+        index_sharding=cfg.index_sharding, idx_shards=cfg.idx_shards,
+    )
+    # the hybrid stream needs the C chainer (its host leg and the
+    # consumer both chain there)
+    if cfg.backend == "hybrid" and chain_module() is not None:
+        mapper = last_hybrid = hybrid_mapper(cfg, mapper, index,
+                                             contig_lengths)
+    return mapper
+
+
 def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
     """Mapping + scaffold-graph stage. Returns the DOT artifact path."""
-    global last_mapper, last_hybrid, last_map_seconds
+    global last_map_seconds
     check_supported(cfg)
+    sketch_device, devices = split_devices(cfg, device)
     prefix = cfg.resolved_prefix()
     dot_path = f"{prefix}.n{cfg.n}.scaffold.dot"
     checkpoint = f"{prefix}.verbose_mapping.tsv"
@@ -487,31 +565,57 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
         with tracer.stage("pair/checkpoint-tally"):
             tally = tally_from_checkpoint(ckpt, contig_lengths, cfg.k, cfg.f)
     else:
+        process_id, n_processes = maybe_init_distributed()
         with tracer.stage("pair/contig-sketch"):
-            tsv = ensure_contig_sketch_tsv(cfg, cfg.k, cfg.w, device=device)
+            tsv = ensure_contig_sketch_tsv(cfg, cfg.k, cfg.w,
+                                           device=sketch_device)
             log("Loading contig index", tsv)
             index = ContigIndex.from_tsv(tsv)
             log("Index size:", len(index))
-        mapper = last_mapper = TorchMapper(
-            index, cfg.k, cfg.w, batch_bases=cfg.batch_bases, device=device,
-            prechain=_prechain_args(cfg, index, contig_lengths),
-            runs_only=not (cfg.verbose or cfg.paf), with_hashes=cfg.repeats,
-        )
-        last_hybrid = None
-        # the hybrid stream needs the C chainer (its host leg and the
-        # consumer both chain there)
-        if cfg.backend == "hybrid" and chain_module() is not None:
-            mapper = last_hybrid = hybrid_mapper(cfg, mapper, index,
-                                                 contig_lengths)
+        mapper = make_mapper(cfg, index, contig_lengths, devices)
         t0 = time.perf_counter()
-        with tracer.stage("pair/map-reads"):
-            tally = map_reads(
-                cfg, index, contig_lengths,
-                verbose_path=checkpoint if cfg.verbose else None,
-                paf_path=f"{prefix}.paf" if cfg.paf else None,
-                mapper=mapper,
-            )
-        last_map_seconds = time.perf_counter() - t0
+        if n_processes > 1:
+            # per-read-file sharding: each process maps its files into
+            # per-file tallies and artifact parts, then everything merges
+            # in global file order, byte-identical to a one-process run
+            # (reference contract: one verbose/paf file,
+            # ntlink_pair.py:382-388)
+            per_file_tallies: Dict[int, PairTally] = {}
+            verbose_parts: Dict[int, str] = {}
+            paf_parts: Dict[int, str] = {}
+            with tracer.stage("pair/map-reads"):
+                for fi, reads_file in enumerate(cfg.reads):
+                    if fi % n_processes != process_id:
+                        continue
+                    log(f"Host {process_id}/{n_processes} mapping", reads_file)
+                    sub = dataclasses.replace(cfg, reads=[reads_file])
+                    vp = f"{checkpoint}.part{fi}" if cfg.verbose else None
+                    pp = f"{prefix}.paf.part{fi}" if cfg.paf else None
+                    per_file_tallies[fi] = map_reads(
+                        sub, index, contig_lengths, vp, pp, mapper=mapper
+                    )
+                    if vp:
+                        verbose_parts[fi] = vp
+                    if pp:
+                        paf_parts[fi] = pp
+            last_map_seconds = time.perf_counter() - t0
+            with tracer.stage("pair/tally-allgather"):
+                tally = all_gather_file_tallies(
+                    per_file_tallies, PairTally(contig_lengths, cfg.k, cfg.f)
+                )
+                if cfg.verbose:
+                    merge_file_parts(checkpoint, verbose_parts)
+                if cfg.paf:
+                    merge_file_parts(f"{prefix}.paf", paf_parts)
+        else:
+            with tracer.stage("pair/map-reads"):
+                tally = map_reads(
+                    cfg, index, contig_lengths,
+                    verbose_path=checkpoint if cfg.verbose else None,
+                    paf_path=f"{prefix}.paf" if cfg.paf else None,
+                    mapper=mapper,
+                )
+            last_map_seconds = time.perf_counter() - t0
         if last_hybrid is not None:
             log(f"Hybrid split: {last_hybrid.device_reads} reads on the "
                 f"device path, {last_hybrid.host_reads} on the host path")

@@ -1,22 +1,29 @@
-"""Per-stage tracing: wall time, CPU time, peak RSS.
+"""Per-stage tracing: wall time, CPU time, peak RSS, device profile hook.
 
 The reference tracks per-stage time/RSS externally via GNU `time -v` when
 `v=1` (reference ntLink:100-110); here tracing is in-process: every pipeline
 stage runs under a `stage()` span, and the collected spans are printed and
-written to `<prefix>.trace.json`. Counterpart of ``ntlink_tpu/tracing.py``
-without its device-profile hook: the port's entry points refuse `v>0`
-(`pipeline.check_supported`), so the tracer stays disabled and `stage()` is
-a no-op around the host stages that enter it.
+written to `<prefix>.trace.json`. Counterpart of ``ntlink_tpu/tracing.py``;
+its device-profile hook is ``torch.profiler`` here: setting
+`NTLINK_TORCH_PROFILE=<dir>` (or `torch_profile_dir` on the tracer)
+captures the CPU and, where there is a card, the CUDA activities around
+each traced stage and exports one Chrome trace per stage,
+`<dir>/<stage>/trace.json` (a stage name's "/" makes a directory level, as
+in the JAX package). The steps' `torch.profiler.record_function` ranges
+(`mapping_step`, `chain`) name the device work by stage there. A profile
+that was asked for and cannot start or be written is an error, not a
+silent skip.
 """
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import resource
 import sys
 import time
 from dataclasses import dataclass
-from typing import List
+from typing import List, Optional
 
 
 @dataclass
@@ -30,20 +37,51 @@ class Span:
 class Tracer:
     """Collects stage spans; no-op when disabled."""
 
-    def __init__(self, enabled: bool = False):
+    def __init__(self, enabled: bool = False,
+                 torch_profile_dir: Optional[str] = None):
         self.enabled = enabled
         self.spans: List[Span] = []
+        self.torch_profile_dir = torch_profile_dir or os.environ.get(
+            "NTLINK_TORCH_PROFILE"
+        )
+
+    def _start_profile(self, name: str):
+        """Start a ``torch.profiler`` capture for stage `name`; returns
+        (profiler, path of the Chrome trace it will write)."""
+        import torch
+        from torch._C._profiler import _ExperimentalConfig
+        from torch.profiler import ProfilerActivity, profile
+
+        out_dir = os.path.join(self.torch_profile_dir, name)
+        os.makedirs(out_dir, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        # the device calls of a stage run on the streams' feeder threads,
+        # which are started after the profiler: trace every thread
+        prof = profile(
+            activities=activities,
+            experimental_config=_ExperimentalConfig(profile_all_threads=True),
+        )
+        prof.start()
+        return prof, os.path.join(out_dir, "trace.json")
 
     @contextlib.contextmanager
     def stage(self, name: str):
         if not self.enabled:
             yield
             return
+        prof = None
+        if self.torch_profile_dir:
+            prof, trace_path = self._start_profile(name)
         t0 = time.time()
         c0 = time.process_time()
         try:
             yield
         finally:
+            if prof is not None:
+                prof.stop()
+                prof.export_chrome_trace(trace_path)
             rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
             self.spans.append(
                 Span(name, time.time() - t0, time.process_time() - c0, rss)
@@ -75,6 +113,57 @@ class Tracer:
 GLOBAL = Tracer(enabled=False)
 
 
-def enable() -> Tracer:
+def enable(torch_profile_dir: Optional[str] = None) -> Tracer:
     GLOBAL.enabled = True
+    if torch_profile_dir:
+        GLOBAL.torch_profile_dir = torch_profile_dir
     return GLOBAL
+
+
+def stage_device_times(trace_path: str) -> dict:
+    """Device time by `record_function` range, from one Chrome trace that
+    the profile hook wrote on a card. A kernel or copy on the device
+    belongs to the range whose device-side annotation spans it on its
+    stream. Returns {"stages": {range name: {"us": device microseconds of
+    its kernels and copies, "events": their count}}, "unattributed_us":
+    device time outside every range, "total_us": all of it, "kernels":
+    {kernel name: microseconds}}."""
+    import bisect
+
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges: dict = {}   # (pid, tid) -> [(start, end, name)], by start
+    work = []
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat == "gpu_user_annotation":
+            ranges.setdefault((e["pid"], e["tid"]), []).append(
+                (e["ts"], e["ts"] + e["dur"], e["name"]))
+        elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            work.append(e)
+    starts = {}
+    for key, spans in ranges.items():
+        spans.sort()
+        starts[key] = [s[0] for s in spans]
+    out = {"stages": {}, "unattributed_us": 0.0, "total_us": 0.0,
+           "kernels": {}}
+    for e in work:
+        key = (e["pid"], e["tid"])
+        name = None
+        if key in ranges:
+            i = bisect.bisect_right(starts[key], e["ts"]) - 1
+            if i >= 0 and e["ts"] + e["dur"] <= ranges[key][i][1] + 1e-3:
+                name = ranges[key][i][2]
+        out["total_us"] += e["dur"]
+        if e.get("cat") == "kernel":
+            out["kernels"][e["name"]] = (
+                out["kernels"].get(e["name"], 0.0) + e["dur"])
+        if name is None:
+            out["unattributed_us"] += e["dur"]
+            continue
+        stage = out["stages"].setdefault(name, {"us": 0.0, "events": 0})
+        stage["us"] += e["dur"]
+        stage["events"] += 1
+    return out

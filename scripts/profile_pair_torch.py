@@ -6,11 +6,16 @@ Writes `chip_smoke.py`'s synthetic dataset (C. elegans scale) to a
 temporary directory and runs the port's `pair` through its CLI three times,
 each in a fresh directory (so each sketches the contigs too): once to warm
 up (kernel build, allocator), then the default run (verbose, prechained)
-and the lean run (verbose=False, runs-only), each under `torch.profiler`.
-Prints each run's stage, contig-sketch and mapping-stream wall seconds, each
-profiled run's device self time (kernels and copies, summed as the
-profiler's own table total) with its share of the stage, and the
-profiler's table sorted by device time. Exits 1 without a CUDA device.
+and the lean run (verbose=False, runs-only), each with v=1 and the
+tracer's ``torch.profiler`` hook on (`tracing.Tracer.torch_profile_dir`),
+which writes one Chrome trace per stage. Prints each run's stage,
+contig-sketch and mapping-stream wall seconds, and for the
+`pair/contig-sketch` and `pair/map-reads` traces of each profiled run the
+device time by `record_function` range (`tracing.stage_device_times`:
+unpack, sketch, N windows, select, join, chain, run summary, compaction,
+and what lies outside every range, the copies to the host among it), the
+device's busy share of the stage's wall time, and the five kernels that
+took most. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -21,12 +26,12 @@ import tempfile
 import time
 
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the dataset and the CLI's argv)
-from ntlink_tpu_torch import cli, pipeline  # noqa: E402
+from ntlink_tpu_torch import cli, pipeline, tracing  # noqa: E402
+
+STAGES = ("pair/contig-sketch", "pair/map-reads")
 
 
 def run_pair(root: str, name: str, argv) -> float:
@@ -43,6 +48,26 @@ def run_pair(root: str, name: str, argv) -> float:
     return time.perf_counter() - t0
 
 
+def print_split(label: str, trace_path: str, wall_s: float) -> dict:
+    """Print one trace's device time by range; returns the split."""
+    split = tracing.stage_device_times(trace_path)
+    total = split["total_us"]
+    print(f"{label}: device time {total / 1e3:.3f} ms = "
+          f"{total / 1e6 / wall_s:.2%} of the stage's {wall_s:.3f} s wall")
+    rows = sorted(split["stages"].items(), key=lambda kv: -kv[1]["us"])
+    rows.append(("(outside every range)",
+                 {"us": split["unattributed_us"], "events": None}))
+    for name, row in rows:
+        print(f"{label}:   {name:<26} {row['us'] / 1e3:10.3f} ms "
+              f"{row['us'] / max(total, 1e-9):7.2%}"
+              + ("" if row["events"] is None
+                 else f"  ({row['events']} kernels and copies)"))
+    top = sorted(split["kernels"].items(), key=lambda kv: -kv[1])[:5]
+    for name, us in top:
+        print(f"{label}:   kernel {name[:60]:<60} {us / 1e3:10.3f} ms")
+    return split
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_pair_torch: no CUDA device", file=sys.stderr)
@@ -53,38 +78,34 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     runs = (("warm-up", chip_smoke.PAIR_ARGV),
-            ("default", chip_smoke.PAIR_ARGV),
-            ("lean", chip_smoke.LEAN_ARGV))
+            ("default", chip_smoke.PAIR_ARGV + ["v=1"]),
+            ("lean", chip_smoke.LEAN_ARGV + ["v=1"]))
+    tracer = tracing.GLOBAL
     with tempfile.TemporaryDirectory(prefix="ntlink_profile_") as root:
         os.makedirs(os.path.join(root, "data"))
         chip_smoke.write_dataset(os.path.join(root, "data"))
         for name, argv in runs:
-            prof = None
-            if name == "warm-up":
-                stage_s = run_pair(root, name, argv)
-            else:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    stage_s = run_pair(root, name, argv)
+            tracer.spans.clear()
+            tracer.torch_profile_dir = (
+                None if name == "warm-up" else os.path.join(root, "prof", name)
+            )
+            stage_s = run_pair(root, name, argv)
             sketch_s = pipeline.last_sketcher.stream_seconds
             stream_s = pipeline.last_mapper.stream_seconds
-            print(f"profile: {name} run: pair stage {stage_s:.3f} s, "
+            print(f"profile: {smi}: {name} run: pair stage {stage_s:.3f} s, "
                   f"contig sketch {sketch_s:.3f} s, mapping stream "
-                  f"{stream_s:.3f} s", flush=True)
-            if prof is None:
+                  f"{stream_s:.3f} s (profiler "
+                  f"{'off' if name == 'warm-up' else 'on'})", flush=True)
+            if name == "warm-up":
                 continue
-            events = prof.key_averages()
-            device_us = sum(
-                e.self_device_time_total for e in events
-                if e.device_type == DeviceType.CUDA
-                and not e.is_user_annotation
-            )
-            print(f"profile: {smi}: {name} run's device self time "
-                  f"{device_us / 1e3:.3f} ms = "
-                  f"{device_us / 1e6 / stage_s:.2%} of its pair stage "
-                  f"({stage_s:.3f} s)")
-            print(events.table(sort_by="self_device_time_total",
-                               row_limit=20))
+            walls = {s.name: s.wall_s for s in tracer.spans}
+            for stage in STAGES:
+                print_split(
+                    f"profile: {name} {stage}",
+                    os.path.join(tracer.torch_profile_dir, stage,
+                                 "trace.json"),
+                    walls[stage],
+                )
     return 0
 
 

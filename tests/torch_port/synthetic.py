@@ -50,6 +50,21 @@ def write_dataset(d, seed=11, n_reads=150, read_len=(3000, 20_000)):
             fh.write(f">{name}\n{seq}\n")
 
 
+def split_reads(d, n=2):
+    """Split `d`/reads.fa round-robin by record into reads1.fa .. reads<n>.fa
+    (multi-process runs shard by read file); returns the names."""
+    names = [f"reads{i + 1}.fa" for i in range(n)]
+    with open(os.path.join(d, "reads.fa")) as fh:
+        lines = fh.read().splitlines()
+    outs = [open(os.path.join(d, name), "w") for name in names]
+    for r in range(len(lines) // 2):
+        outs[r % n].write(lines[2 * r] + "\n" + lines[2 * r + 1] + "\n")
+    for fh in outs:
+        fh.close()
+    os.remove(os.path.join(d, "reads.fa"))
+    return names
+
+
 def assert_same_tree(a, b, must_have=()):
     """Directories `a` and `b` hold the same names; symlinks point at the
     same names and regular files hold the same bytes. Every name in

@@ -1,6 +1,9 @@
-"""The port refuses tracing (v=1) until it is ported, instead of running
-without it: ``ntlink_tpu.cli`` lets no knob silently do nothing
-(cli.py:131-134)."""
+"""What the port's command line accepts and refuses. Every setting of
+``ntlink_tpu.cli`` runs (v, backend=numpy, index_sharding, idx_shards,
+multi-process); only a backend name the reference does not know is
+refused, and no knob silently does nothing (cli.py:131-134): v=1 turns the
+tracer on, index_sharding and idx_shards are echoed and reach the mapper.
+Without a card every backend but numpy exits 2."""
 import os
 import subprocess
 import sys
@@ -8,28 +11,92 @@ import sys
 import pytest
 
 from ntlink_tpu.config import ScaffoldConfig
-from ntlink_tpu_torch import pipeline
+from ntlink_tpu_torch import cli, pipeline, tracing
+
+from .synthetic import write_dataset
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
-MESSAGE = "not yet ported: v (tracing)"
+NO_CARD = "needs a CUDA device"
 
 
 def test_check_supported_refuses_tracing():
-    cfg = ScaffoldConfig(target="t.fa", reads=["r.fa"], v=1)
-    with pytest.raises(pipeline.NotPorted, match=r"v \(tracing\)"):
-        pipeline.check_supported(cfg)
+    """It no longer does: v=1 is accepted, like every setting but an
+    unknown backend name."""
+    pipeline.check_supported(ScaffoldConfig(target="t.fa", reads=["r.fa"],
+                                            v=1))
     pipeline.check_supported(ScaffoldConfig(target="t.fa", reads=["r.fa"]))
+    assert not hasattr(pipeline, "NotPorted")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(v=1), dict(backend="numpy"), dict(backend="hybrid"),
+    dict(backend="jax"), dict(index_sharding="hash"), dict(idx_shards=2),
+    dict(index_sharding="hash", idx_shards=4, v=2, backend="auto"),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_check_supported_accepts(kw, monkeypatch):
+    monkeypatch.setenv("NTLINK_NUM_PROCESSES", "2")
+    pipeline.check_supported(
+        ScaffoldConfig(target="t.fa", reads=["r.fa"], **kw))
+
+
+def test_check_supported_refuses_an_unknown_backend():
+    with pytest.raises(ValueError, match="unknown backend=tpu"):
+        pipeline.check_supported(
+            ScaffoldConfig(target="t.fa", reads=["r.fa"], backend="tpu"))
+
+
+def _run(tmp_path, *args, env=None):
+    return subprocess.run(
+        [sys.executable, "-m", "ntlink_tpu_torch", "pair",
+         "target=target.fa", "reads=reads.fa", *args],
+        cwd=tmp_path, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": REPO, "CUDA_VISIBLE_DEVICES": "",
+             **(env or {})},
+    )
 
 
 def test_cli_prints_tracing_refusal(tmp_path):
-    """The refusal comes before the card is looked for: without a card the
-    command exits 2 either way, so the message is what shows it."""
-    res = subprocess.run(
-        [sys.executable, "-m", "ntlink_tpu_torch", "pair",
-         "target=target.fa", "reads=reads.fa", "v=1"],
-        cwd=tmp_path, capture_output=True, text=True,
-        env={**os.environ, "PYTHONPATH": REPO}, timeout=300,
-    )
+    """v=1 is no longer refused: without a card the command exits 2 for
+    want of the card, and says so."""
+    res = _run(tmp_path, "v=1")
     assert res.returncode == 2
-    assert MESSAGE in res.stderr
+    assert "not yet ported" not in res.stderr
+    assert NO_CARD in res.stderr
+
+
+@pytest.mark.parametrize("args,env", [
+    (["index_sharding=hash"], {}), (["idx_shards=2"], {}),
+    ([], {"NTLINK_NUM_PROCESSES": "2", "NTLINK_GROUP_DIR": "g"}),
+])
+def test_cli_accepts_what_it_refused(tmp_path, args, env):
+    res = _run(tmp_path, *args, env=env)
+    assert res.returncode == 2
+    assert "not yet ported" not in res.stderr and NO_CARD in res.stderr
+
+
+def test_cli_refuses_an_unknown_backend(tmp_path):
+    res = _run(tmp_path, "backend=tpu")
+    assert res.returncode == 2
+    assert "unknown backend=tpu" in res.stderr
+
+
+def test_cli_echoes_and_enables_the_knobs(tmp_path, monkeypatch, capsys):
+    """backend=numpy needs no card, so the whole of `main` runs here: v=1
+    enables the tracer, and the echo shows the sharding knobs."""
+    write_dataset(tmp_path, seed=47, n_reads=20)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(tracing.GLOBAL, "enabled", False)
+    monkeypatch.setattr(tracing.GLOBAL, "spans", [])
+    rc = cli.main(["scaffold", "target=target.fa", "reads=reads.fa",
+                   "backend=numpy", "v=1", "index_sharding=hash",
+                   "idx_shards=2", "k=32", "w=100", "z=1000"])
+    out = capsys.readouterr().out
+    assert rc == 0
+    assert tracing.GLOBAL.enabled
+    for line in ("\tindex_sharding=hash", "\tidx_shards=2", "\tv=1",
+                 "\tbackend=numpy"):
+        assert line in out
+    assert [s.name for s in tracing.GLOBAL.spans][:3] == [
+        "pair/contig-sketch", "pair/map-reads", "pair/graph-build"]
+    assert os.path.exists("target.fa.k32.w100.z1000.trace.json")

@@ -118,3 +118,69 @@ def test_alu_peak_matches_plain_version_on_card(width):
         out = alu_peak_cuda.alu_peak(x, iters, width)
         assert alu_peak_cuda.launches == launches + 1
         assert torch.equal(out, alu_peak_ref(x, iters, width)), iters
+
+
+def _mapper_case():
+    """A small index and reads that hit it (some with an N), from a seed."""
+    from ntlink_tpu_torch.index import ContigIndex
+    from ntlink_tpu_torch.ops import nthash_np
+
+    k, w = 32, 100
+    rng = np.random.default_rng(77)
+    contigs = [rng.integers(0, 4, 120_000).astype(np.uint8) for _ in range(3)]
+    index = ContigIndex.from_sketches(
+        (f"c{i}", nthash_np.sketch_codes(c, k, w))
+        for i, c in enumerate(contigs)
+    )
+    reads = []
+    for r, n in enumerate([20, 900, 1024, 3000, 5000, 16384, 20000, 40000]
+                          * 6):
+        c = contigs[r % 3]
+        s = int(rng.integers(0, len(c) - n))
+        read = c[s : s + n].copy()
+        if r % 5 == 0 and n > 100:
+            read[n // 2] = 4
+        reads.append((f"r{r}", read))
+    return index, reads, k, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prechained", "runs", "hashes", "hash"])
+def test_card_named_twice_matches_one_device(kind):
+    """``devices=["cuda:0", "cuda:0"]`` (two replicas on their own streams,
+    or a 1 x 2 hash-sharded grid) yields the one-device payloads, and
+    every replica launches the kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.device_map import TorchMapper
+
+    index, reads, k, w = _mapper_case()
+    prechain = (np.full(3, 120_000, np.int32), 1000)
+    kw = {
+        "prechained": dict(prechain=prechain),
+        "runs": dict(prechain=prechain, runs_only=True),
+        "hashes": dict(with_hashes=True),
+        "hash": dict(with_hashes=True, index_sharding="hash", idx_shards=2),
+    }[kind]
+    one_kw = {a: b for a, b in kw.items()
+              if a not in ("index_sharding", "idx_shards")}
+    one = TorchMapper(index, k, w, batch_bases=262_144, device="cuda:0",
+                      **one_kw)
+    two = TorchMapper(index, k, w, batch_bases=262_144,
+                      devices=["cuda:0", "cuda:0"], **kw)
+    want = list(one.map_stream_raw(iter(reads)))
+    got = list(two.map_stream_raw(iter(reads)))
+    assert len(got) == len(want) == len(reads)
+    n_hits = 0
+    for a, b in zip(got, want):
+        assert a[:2] == b[:2]
+        assert (a[2] is None) == (b[2] is None), a[0]
+        if a[2] is None:
+            continue
+        n_hits += 1
+        assert a[2][0] == b[2][0], a[0]
+        for x, y in zip(a[2][1:], b[2][1:]):
+            assert np.array_equal(x[: a[2][0]], y[: b[2][0]]), a[0]
+    assert n_hits > 30
+    assert min(two.launches_by_device()) > 0
+    assert two.kernel_launches >= one.kernel_launches

@@ -45,10 +45,14 @@ def _forbidden_imports(path):
 
 def test_sources_found():
     paths = list(_sources())
-    assert len(paths) > 35
+    assert len(paths) > 39
     assert all(os.path.exists(p) for p in paths)
-    for sub in ("native", "seqio", "ops"):
+    for sub in ("native", "seqio", "ops", "parallel"):
         assert any(os.sep + sub + os.sep in p for p in paths)
+    rels = {os.path.relpath(p, PACKAGE) for p in paths}
+    assert {"graft_entry.py", os.path.join("parallel", "distributed.py"),
+            os.path.join("parallel", "sharded_index.py"),
+            os.path.join("parallel", "__init__.py")} <= rels
 
 
 @pytest.mark.parametrize("rel", sorted(
@@ -97,6 +101,17 @@ targets, cfg, rounds = cli.parse(argv)
 print("DOT", cli.dispatch(targets, cfg, rounds, "cpu"))
 assert cli.main(["fac", "target.fa"]) == 0
 assert cli.main(["pair", "target=target.fa", "reads=reads.fa"]) == 2
+# the new paths: two devices, the hash-sharded index, the dryruns
+from ntlink_tpu_torch import graft_entry
+cfg.index_sharding = "hash"
+import os
+os.remove("target.fa.k32.w100.z1000.n1.scaffold.dot")
+print("DOT2", cli.dispatch(targets, cfg, rounds, ["cpu", "cpu"]))
+graft_entry.dryrun_multichip(2, devices=["cpu"] * 2)
+# a single-process run starts no process group (`import torch` loads
+# torch.distributed by itself; the port's own import of it is lazy)
+import torch.distributed
+print("DIST", torch.distributed.is_initialized())
 print("LOADED", sorted(m for m in sys.modules
                        if m.split(".")[0] in ("jax", "jaxlib", "ntlink_tpu")))
 """
@@ -114,6 +129,8 @@ def test_port_runs_with_jax_and_the_jax_package_refused(tmp_path):
     )
     assert res.returncode == 0, res.stderr
     assert "LOADED []" in res.stdout
+    assert "DIST False" in res.stdout
+    assert "DOT2 target.fa.k32.w100.z1000.n1.scaffold.dot" in res.stdout
     imported = int(res.stdout.split("IMPORTED ")[1].split()[0])
     assert imported > 30
     dot = tmp_path / "target.fa.k32.w100.z1000.n1.scaffold.dot"

@@ -129,19 +129,25 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
 @pytest.mark.parametrize(
     "argv,message",
     [
+        # ported since: accepted, and refused here only for want of a card
         (["pair", "target=t.fa", "reads=r.fa", "index_sharding=hash"],
-         "not yet ported: index_sharding=hash"),
+         "needs a CUDA device"),
         (["scaffold", "target=t.fa", "reads=r.fa", "v=1"],
-         "not yet ported: v (tracing)"),
-        (["pair", "target=t.fa", "reads=r.fa", "backend=numpy"],
-         "python -m ntlink_tpu ... backend=numpy"),
+         "needs a CUDA device"),
+        # what is still refused: a backend name ntlink_tpu does not know
+        (["pair", "target=t.fa", "reads=r.fa", "backend=cuda"],
+         "unknown backend=cuda"),
     ],
 )
-def test_cli_rejects_unported(argv, message, capsys):
+def test_cli_rejects_unported(argv, message, capsys, monkeypatch):
+    import torch
+
     from ntlink_tpu_torch.cli import main
 
-    assert main(argv) != 0
-    assert message in capsys.readouterr().err
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert main(argv) == 2
+    err = capsys.readouterr().err
+    assert message in err and "not yet ported" not in err
 
 
 @pytest.mark.parametrize("verbose", [True, False])
