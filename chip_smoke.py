@@ -6,7 +6,8 @@ Phase 0 builds the port's six native C modules and its CUDA kernels from
 the checkout, all at once, and fails if one is missing. Then it holds each
 kernel against its plain PyTorch version. Phase 1: the sketch kernel on the
 batches the main path gives it (the mapper's batch of bases at pads 1024 ..
-2^21, and the contig sketcher's 8 x 2^21), with rows whose length, last
+2^21, the contig sketcher's 8 x 2^21, and the bench entry point's 1024 x
+16384 with every partial height under it), with rows whose length, last
 k-mer and last window fall on, before and after a seam of the kernel's
 4096-column segments, then its time beside its byte bound at 512 x 16384
 and 8 x 2^21 (CUDA events, median of 10, a 64 MiB write before each launch
@@ -37,7 +38,16 @@ reads, and the dryruns of ``ntlink_tpu_torch.graft_entry``. Phase 9:
 `scaffold gap_fill v=1` under NTLINK_TORCH_PROFILE: the span names in
 order, one Chrome trace per stage, and the `pair/map-reads` trace's device
 time by `record_function` range. Phase 10: backend=numpy in a process
-with no CUDA device visible. Every phase prints a line; any failure exits
+with no CUDA device visible. Phase 12 (with them, on the same draft): the
+launchers as a user starts them, `./ntLink_torch pair` against the
+one-process run and `./ntLink_rounds_torch` without a rounds target. Phase
+11: the bench entry point (``ntlink_tpu_torch.bench``) at its full size,
+30,000 reads of 15 kb over 16 contigs of 250 kb, with NTLINK_TIMING=1: the
+device, hybrid and strong host legs' tallies are equal, the mapper's
+`wire_stats` count the bytes of the batches that ran, every phase of the
+stream's timing split is there and no thread's phases sum past the
+stream's wall; its result line and the split are printed with the card's
+name and power limit. Every phase prints a line; any failure exits
 non-zero before the last line, which is the JSON result. Without a CUDA
 device it exits 1.
 """
@@ -60,9 +70,10 @@ import numpy as np
 import torch
 
 from ntlink_tpu_torch import (
-    cli, graft_entry, kernel_bench, native, pipeline, tracing,
+    bench, cli, graft_entry, kernel_bench, native, pipeline, tracing,
 )
 from ntlink_tpu_torch.device_map import batch_rows
+from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
 from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
@@ -230,12 +241,13 @@ def compare(out, ref, lengths, k):
     )
     if not torch.equal(can[valid], r_can[valid]):
         return float("inf")
-    errs = [
-        (fwd[valid].int() - r_fwd[valid].int()).abs().max(),
-        (winner.long() - r_win.long()).abs().max(),
-        (emit.int() - r_emit.int()).abs().max(),
+    diffs = [
+        fwd[valid].int() - r_fwd[valid].int(),
+        winner.long() - r_win.long(),
+        emit.int() - r_emit.int(),
     ]
-    return max(float(e) for e in errs if e.numel())
+    # a batch of one row too short for a k-mer has no valid column
+    return max(float(d.abs().max()) for d in diffs if d.numel())
 
 
 def cuda_ms(fn, reps: int = 10, flush: torch.Tensor = None) -> float:
@@ -307,6 +319,17 @@ def batch_shapes(batch_bases: int):
     return shapes
 
 
+def bench_shapes():
+    """(B, pad) of every batch the bench entry point can give the kernel.
+    Its reads all pad to one length; its device leg sends full batches of
+    `bench.BATCH_BASES` bases and its warm-up one partial batch, and its
+    hybrid leg ends the device's stream wherever the scheduler finds it
+    idle, so a partial batch there may have any power-of-two height."""
+    pad = next_pow2(bench.READ_LEN)
+    full = batch_rows(pad, bench.BATCH_BASES)
+    return [(B, pad) for B in (1 << e for e in range(full.bit_length()))]
+
+
 def sketch_bound_ms(B: int, L: int, k: int, w: int):
     """(least milliseconds the card could take for one sketch of a (B, L)
     batch, "bytes" or "operations"): codes and lengths read once and the
@@ -321,14 +344,17 @@ def sketch_bound_ms(B: int, L: int, k: int, w: int):
 
 
 def phase_kernel(dev) -> dict:
-    """Kernel vs plain version at the main path's batch shapes."""
+    """Kernel vs plain version at the batch shapes of the main paths: the
+    `pair` runs' and the bench entry point's."""
     batch_bases = cli.parse(PAIR_ARGV)[1].batch_bases
+    shapes = batch_shapes(batch_bases)
+    shapes += [s for s in bench_shapes() if s not in shapes]
     rng = np.random.default_rng(SEED)
     worst = 0.0
     times = {}
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for k, w in KW_GRID:
-        for B, L in batch_shapes(batch_bases):
+        for B, L in shapes:
             for codes_np, lengths_np in edge_batches(rng, B, L, k, w):
                 codes = torch.from_numpy(codes_np).to(dev)
                 lengths = torch.from_numpy(lengths_np).to(dev)
@@ -974,8 +1000,152 @@ def phase_numpy(root: str, inputs, one_pair: str) -> None:
               what="card == host")
 
 
+def phase_launchers(root: str, inputs, one_pair: str) -> dict:
+    """Phase 12: the launchers at the root of the checkout, started as a
+    user starts them (their own interpreter line, this interpreter's
+    directory first on PATH)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith("NTLINK_")}
+    env["PATH"] = os.path.dirname(sys.executable) + os.pathsep + env["PATH"]
+    d = make_dir(root, "p12", inputs)
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [os.path.join(REPO, "ntLink_torch"), *PAIR2_ARGV], cwd=d, env=env,
+        capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+    )
+    if res.returncode != 0:
+        fail(f"phase 12: ./ntLink_torch pair exited {res.returncode}:\n"
+             f"{res.stderr[-3000:]}")
+    launches = sum(int(n) for n in re.findall(
+        r"(\d+) sketch kernel launch", res.stderr))
+    if launches == 0:
+        fail("phase 12: ./ntLink_torch pair launched no sketch kernel")
+    log(f"phase 12: ./ntLink_torch pair as a process of its own: "
+        f"{time.perf_counter() - t0:.1f} s; {launches} sketch kernel "
+        f"launches")
+    same_tree("phase 12", one_pair, d,
+              [PREFIX + a for a in ARTIFACTS] + [CONTIG_TSV],
+              what="one process == ./ntLink_torch")
+    d = make_dir(root, "p12_rounds", inputs)
+    res = subprocess.run(
+        [os.path.join(REPO, "ntLink_rounds_torch"), *PAIR2_ARGV], cwd=d,
+        env=env, capture_output=True, text=True, timeout=RANK_TIMEOUT_S,
+    )
+    if res.returncode != 0 or res.stdout.strip() != cli.HELP.strip() \
+            or len(os.listdir(d)) != len(inputs):
+        fail(f"phase 12: ./ntLink_rounds_torch without a rounds target: "
+             f"exit {res.returncode}, {len(res.stdout)} bytes of output, "
+             f"files {sorted(os.listdir(d))}\n{res.stderr[-2000:]}")
+    log("phase 12: ./ntLink_rounds_torch without a rounds target: the help "
+        "text, exit 0, nothing written")
+    return {"12 ./ntLink_torch pair": launches}
+
+
+def stream_batches(n_reads: int, pad: int, batch_bases: int) -> list:
+    """Heights of the batches that a stream of `n_reads` reads of one
+    padded length sends to one device: a bucket flushes when it holds a
+    full batch, every bucket flushes when the reads since the last such
+    flush pad to four batches of bases and at the stream's end, and a
+    partial batch's height is the next power of two."""
+    B = batch_rows(pad, batch_bases)
+    heights = []
+    held = budget = 0
+    for _ in range(n_reads):
+        held += 1
+        budget += pad
+        if held == B or (budget >= 4 * batch_bases):
+            heights.append(min(B, next_pow2(held)))
+            held = 0
+        if budget >= 4 * batch_bases:
+            budget = 0
+    if held:
+        heights.append(min(B, next_pow2(held)))
+    return heights
+
+
+def phase_bench_entry(dev, smi: str) -> dict:
+    """Phase 11: the bench entry point at its full size, with the stream's
+    timing on; both kernels' counts are set to 0 just before and read just
+    after."""
+    children = child_processes()
+    had = os.environ.get("NTLINK_TIMING")
+    os.environ["NTLINK_TIMING"] = "1"
+    sketch_cuda.launches = 0
+    alu_peak_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        workload = bench.build_workload()
+        fields, detail = bench.device_run(dev, workload)
+        line = bench.result_line(
+            fields, bench.weak_host_rate(workload, bench.N_READS))
+    finally:
+        if had is None:
+            del os.environ["NTLINK_TIMING"]
+        else:
+            os.environ["NTLINK_TIMING"] = had
+    launches = {"sketch_rows": sketch_cuda.launches,
+                "alu_peak": alu_peak_cuda.launches}
+    print(json.dumps(line), flush=True)
+    if line["nvidia_smi"] != smi:
+        fail(f"phase 11: the result line names {line['nvidia_smi']}")
+    if min(launches.values()) == 0:
+        fail(f"phase 11: launches {launches}")
+    tallies = detail["tallies"]
+    if not (tallies["device"] == tallies["hybrid"] == tallies["host_strong"]
+            and len(tallies["device"]) > 0):
+        fail("phase 11: the legs' tallies differ")
+    # the bytes of the batches that ran: every read pads to one length,
+    # and a row is its 2-bit codes and its int32 length
+    leg, mapper = detail["device_leg"], detail["mapper"]
+    pad = next_pow2(bench.READ_LEN)
+    heights = stream_batches(len(workload[1]), pad, mapper.batch_bases)
+    if not set((B, pad) for B in heights) <= set(bench_shapes()):
+        fail(f"phase 11: batch heights {sorted(set(heights))} at pad {pad} "
+             f"that phase 1 did not hold against the plain version")
+    rows = leg["runs"] * sum(heights)
+    if leg["batches_by_pad"] != {(pad, False): leg["runs"] * len(heights)}:
+        fail(f"phase 11: batches by pad {leg['batches_by_pad']}, expected "
+             f"{leg['runs'] * len(heights)} at pad {pad}")
+    if leg["wire_stats"]["h2d"] != rows * (pad // 4 + 4):
+        fail(f"phase 11: wire_stats h2d {leg['wire_stats']['h2d']} != "
+             f"{rows} rows x {pad // 4 + 4} bytes")
+    timing, wall = leg["timing"], leg["stream_seconds"]
+    for thread, keys in PhaseTimer.THREADS.items():
+        missing = [k for k in keys if timing.get(k, (0.0, 0))[1] <= 0]
+        if missing:
+            fail(f"phase 11: no {missing} in the timing split")
+        total = sum(timing[k][0] for k in keys)
+        if total > wall:
+            fail(f"phase 11: the {thread} thread's phases sum to "
+                 f"{total:.3f} s, past the stream's {wall:.3f} s wall")
+    if set(timing) != {k for keys in PhaseTimer.THREADS.values()
+                       for k in keys}:
+        fail(f"phase 11: timing keys {sorted(timing)}")
+    for text in bench.timing_lines(smi, timing, wall):
+        log("phase 11:", text.lstrip("# "))
+    log(f"phase 11: {smi}: device busy {leg['device_busy_s']:.3f} s of "
+        f"{leg['profiled_wall_s']:.3f} s wall "
+        f"({leg['device_busy_s'] / leg['profiled_wall_s']:.2%}; one more "
+        f"run, profiler on)")
+    log(f"phase 11: {smi}: device leg {line['device_reads_per_s']:.1f} "
+        f"reads/s best of {leg['runs']} (median "
+        f"{line['device_median_reads_per_s']:.1f}), hybrid "
+        f"{line['hybrid_reads_per_s']:.1f} (median "
+        f"{line['hybrid_median_reads_per_s']:.1f}, device share "
+        f"{line['hybrid_device_share']:.2f}), strong host "
+        f"{line['host_strong_reads_per_s']:.1f} (median "
+        f"{line['host_strong_interleaved_median_reads_per_s']:.1f}), weak "
+        f"host {line['host_weak_reads_per_s']:.1f}; {line['pairs']} pairs "
+        f"in every leg; h2d {leg['wire_stats']['h2d']} bytes = {rows} rows "
+        f"x {pad // 4 + 4}, d2h {leg['wire_stats']['d2h']} bytes; "
+        f"{time.perf_counter() - t0:.1f} s for the phase")
+    left = [c for c in child_processes() if c not in children]
+    if left:
+        fail(f"phase 11: the bench left processes {left}")
+    return launches
+
+
 def phase_new_paths(dev) -> dict:
-    """Phases 7-10 on the smaller draft with its reads in two files; the
+    """Phases 7-10 and 12 on the smaller draft with its reads in two files; the
     references are one-process, one-device card runs of the port's CLI."""
     kwz = "k32.w100.z1000"
     must = [f"target.fa.{kwz}.ntLink.scaffolds.gap_fill.fa",
@@ -1001,6 +1171,7 @@ def phase_new_paths(dev) -> dict:
         by_path.update(phase_replicas(dev, root, data, one_pair))
         by_path.update(phase_tracing(root, inputs, one_scaffold, must))
         phase_numpy(root, inputs, one_pair)
+        by_path.update(phase_launchers(root, inputs, one_pair))
     return by_path
 
 
@@ -1095,11 +1266,13 @@ def run_phases() -> list:
     probe = phase_probe(dev)
     counts = phase_slice(dev)
     rounds = phase_rounds(dev)
-    bench = phase_bench(dev)
+    kbench = phase_bench(dev)
     new_paths = phase_new_paths(dev)
+    entry = phase_bench_entry(dev, smi)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
-    counts["launches_by_path"]["6 kernel bench"] = bench["sketch_rows"]
+    counts["launches_by_path"]["6 kernel bench"] = kbench["sketch_rows"]
     counts["launches_by_path"].update(new_paths)
+    counts["launches_by_path"]["11 bench entry"] = entry["sketch_rows"]
     log(f"nvidia-smi: {smi}")
     kernels = json.dumps({"kernels": [{
         "name": "sketch_rows",
@@ -1114,8 +1287,9 @@ def run_phases() -> list:
         "route": "cuda",
         "source": PROBE_SOURCE,
         "replaces": PROBE_REPLACES,
-        "launches": bench["alu_peak"],
-        "launches_by_path": {"6 kernel bench": bench["alu_peak"]},
+        "launches": kbench["alu_peak"],
+        "launches_by_path": {"6 kernel bench": kbench["alu_peak"],
+                             "11 bench entry": entry["alu_peak"]},
         **probe,
     }]})
     return [kernels, json.dumps({"ok": True, "device": {

@@ -71,6 +71,62 @@ _INT_KEYS = {
 }
 _FLOAT_KEYS = {"x", "hybrid_host_frac"}
 
+HELP = f"""ntlink-tpu v{__version__} (PyTorch port): long-read scaffolding on a CUDA card
+
+Usage: python -m ntlink_tpu_torch <target> [<target> ...] key=value ...
+       (./ntLink_torch and ./ntLink_rounds_torch, or `ntlink-torch` once
+       installed, take the same arguments)
+
+Targets:
+  scaffold          scaffold the assembly (add `gap_fill` to also patch gaps)
+  pair              mapping + scaffold graph only
+  run_rounds        iterative rounds (rounds=N, default 5)
+  run_rounds_gaps   iterative rounds with gap-filling
+  fac               abyss-fac-equivalent contiguity stats over FASTA files
+  liftover          lift a verbose_mapping file over an AGP
+                    (agp=... mappings=... out=... k=32; standalone
+                    equivalent of the reference ntlink_liftover_mappings.py)
+  clean             remove intermediate files (extra_clean: every artifact)
+  version / help
+
+Required: target=<assembly fasta>  reads='<read files ...>'
+Common options (reference-compatible defaults):
+  k=32 w=100 z=1000 n=1 max_n=10 g=20 G=-1 a=1 f=10 x=0 t=4
+  overlap=True conservative=True sensitive=False repeats=False
+  merge_gap=0 small_k=15 small_w=5 gap_k=20 gap_w=10 soft_mask=False
+  prefix=<target>.k<k>.w<w>.z<z>  paf=False verbose=True
+  ntlink_pairs_tsv=False stringent=False
+Engine options:
+  backend=auto|jax|numpy|hybrid  (auto and jax: the card alone; numpy: the
+                            host by name, no card needed; hybrid splits
+                            reads card+host adaptively, and
+                            hybrid_host_frac=0..1 pins a static share;
+                            default auto, hybrid_host_frac=-1)
+  batch_bases=8000000       bases per device batch
+  index_sharding=replicated|hash  (several cards: the index on each, or
+                            hash-sharded over a (data, idx) grid;
+                            default replicated; one card runs replicated)
+  idx_shards=0              shards of the hash-sharded index (0: the largest
+                            power of two, up to 4, that divides the cards)
+  v=0                       1: print the stage trace (wall, CPU, peak RSS)
+                            and write <prefix>.trace.json
+Environment:
+  NTLINK_TORCH_PROFILE=<dir>  when tracing, one torch.profiler Chrome trace
+                            per stage under <dir>/<stage>/trace.json
+  NTLINK_TIMING=1           per-phase wall seconds of each read stream on
+                            stderr (`# ntlink timing: key=seconds/spans`)
+  NTLINK_PIPE_DEPTH=4       read batches in flight between the stream's
+                            producer, feeder and drainer threads
+  NTLINK_NUM_PROCESSES=N NTLINK_PROCESS_ID=i  one of N processes that split
+                            the read files, joined through
+                            NTLINK_GROUP_DIR=<shared dir> or
+                            NTLINK_COORDINATOR=host:port (torch.distributed,
+                            gloo)
+The device targets (pair, scaffold, gap_fill, run_rounds, run_rounds_gaps)
+exit 2 without a CUDA card unless backend=numpy; fac, liftover, clean,
+extra_clean and version are host code.
+"""
+
 
 def parse_args(argv: List[str]):
     targets: List[str] = []
@@ -130,7 +186,6 @@ def build_config(
         else:
             setattr(cfg, dest, value)
     return cfg
-
 
 
 def parse(argv: List[str]):
@@ -214,7 +269,7 @@ def main(argv: List[str] | None = None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     targets, params = parse_args(argv)
     if not targets or "help" in targets:
-        print(__doc__)
+        print(HELP)
         return 0
     if HOST_TARGETS & set(targets):
         return host_main(targets, params)
@@ -240,10 +295,11 @@ def main(argv: List[str] | None = None) -> int:
     if cfg.v:
         tracing.enable()
     print("ntlink_tpu_torch parameters:")
-    for field in ("target", "reads", "k", "w", "t", "z", "n", "a", "f", "x",
-                  "overlap", "sensitive", "repeats", "verbose", "paf",
-                  "pairs_tsv", "backend", "hybrid_host_frac",
-                  "index_sharding", "idx_shards", "v"):
+    for field in ("target", "reads", "k", "w", "t", "z", "n", "max_n", "g",
+                  "G", "merge_gap", "a", "f", "x", "overlap",
+                  "conservative", "sensitive", "repeats", "soft_mask",
+                  "verbose", "paf", "pairs_tsv", "backend",
+                  "hybrid_host_frac", "index_sharding", "idx_shards", "v"):
         print(f"\t{field}={getattr(cfg, field)}")
     print(f"\tprefix={cfg.resolved_prefix()}")
     # what the knobs ask for; the mapper's own line says what ran (the

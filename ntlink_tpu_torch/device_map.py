@@ -36,10 +36,25 @@ blocks' payloads are read back in row order, so every read's payload is
 the one-device payload. `index_sharding="hash"` shards the table instead
 over a (data, idx) grid (`parallel.sharded_index`); it chains on the host,
 and with one device it runs replicated, as ``DeviceMapper`` does.
+
+The stream accounts for itself as ``DeviceMapper``'s does. `wire_stats`
+counts, over every stream of the mapper, the bytes handed to the devices
+(`h2d`: each batch's packed codes, lengths and N mask, once per device
+that gets a copy) and brought back (`d2h`), and the seconds the feeder
+spent in the uploads' host side (`h2d_s`: the copy into pinned memory and
+the enqueue; the upload itself is asynchronous) and the drainer blocked on
+the payloads (`d2h_s`: that wait covers the batch's step on the device as
+well as the copy, since the copy is queued behind it). ``DeviceMapper``'s
+`d2h` counts its capped-transfer protocol; this mapper copies each batch's
+whole payload, so its `d2h` is that payload's size. ``NTLINK_TIMING=1``
+adds the per-phase split of the hot loop (`last_timing`, and a
+``# ntlink timing:`` line on stderr when the stream closes), and
+``NTLINK_PIPE_DEPTH`` sets the batches in flight (default `DEPTH`).
 """
 from __future__ import annotations
 
 import contextlib
+import os
 import sys
 import time
 from typing import Dict, Iterable, Iterator, List, Tuple
@@ -58,7 +73,9 @@ from .ops.nthash_np import Minimizers
 from .parallel.sharded_index import (
     ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
 )
-from .stream_pipeline import DevicePipeline, next_pow2, split_n_rows
+from .stream_pipeline import (
+    DevicePipeline, PhaseTimer, next_pow2, split_n_rows,
+)
 
 
 class _Remap:
@@ -120,6 +137,7 @@ class TorchMapper:
     MIN_PAD = 1 << 10
     MAX_PAD = 1 << 21
     #: in-flight batches between the producer, feeder and drainer threads
+    #: (NTLINK_PIPE_DEPTH overrides it)
     DEPTH = 4
 
     def __init__(self, index: ContigIndex, k: int, w: int,
@@ -200,6 +218,13 @@ class TorchMapper:
         self.kernel_launches = 0
         #: wall seconds of every read stream so far (the summary line's)
         self.stream_seconds = 0.0
+        #: bytes to and from the devices and the seconds the feeder and the
+        #: drainer spent on them, over every stream (see the module's text);
+        #: the feeder writes h2d and h2d_s, the drainer d2h and d2h_s
+        self.wire_stats = {"h2d": 0, "d2h": 0, "h2d_s": 0.0, "d2h_s": 0.0}
+        #: NTLINK_TIMING=1: the last stream's {phase: (seconds, spans)};
+        #: empty when the variable is unset
+        self.last_timing: Dict[str, Tuple[float, int]] = {}
 
     def _slots_for(self, L: int) -> int:
         """Minimizer slot budget for padded length L (density ~2/(w+1))."""
@@ -359,6 +384,11 @@ class TorchMapper:
         launches0 = sketch_cuda.launches
         reads0 = self.device_reads + self.host_fallbacks
         t0 = time.perf_counter()
+        # per-phase accounting of the hot loop: producer thread reader_pull,
+        # pack, feed_enqueue_wait; feeder h2d_put, dispatch, copy_back,
+        # drain_enqueue_wait; drainer drain_flat_wait, drain_decode
+        timer = PhaseTimer(bool(os.environ.get("NTLINK_TIMING")))
+        wire = self.wire_stats
         pending: List[Tuple[str, int]] = []   # (name, length)
         results: Dict[int, object] = {}
         encoded: Dict[int, np.ndarray] = {}
@@ -372,9 +402,30 @@ class TorchMapper:
             row_codes = [encoded.pop(i) for i in idxs]
             lengths = np.zeros(B, dtype=np.int32)
             lengths[: len(idxs)] = [len(c) for c in row_codes]
+            ts = timer.now()
             packed, nmask = pack_batch(row_codes, B, pad, has_n)
+            ts = timer.mark("pack", ts)
             pipe.submit((packed, nmask, lengths, key, dict(enumerate(idxs)),
                          row_codes))
+            timer.mark("feed_enqueue_wait", ts)
+
+        def upload(put, device, packed, lengths, nmask, copies=1):
+            # feeder thread: one block's host copy and upload enqueue
+            tw = time.perf_counter()
+            out = put(device, packed, lengths, nmask)
+            dt = time.perf_counter() - tw
+            wire["h2d"] += copies * (
+                packed.nbytes + lengths.nbytes
+                + (0 if nmask is None else nmask.nbytes))
+            wire["h2d_s"] += dt
+            timer.add("h2d_put", dt)
+            return out
+
+        def download(out: torch.Tensor):
+            ts = timer.now()
+            host = copy_back(out)
+            timer.mark("copy_back", ts)
+            return host
 
         def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
             # feeder thread: every device call of the batch. Each block of
@@ -388,10 +439,14 @@ class TorchMapper:
             if self.index_sharding == "hash":
                 step = self._hash_step_for(pad)
                 origin = step.cells[0][0]
-                out = step(*pinned(origin.device, packed, lengths),
-                           nmask=pinned(origin.device, nmask)[0])
+                # the step uploads each data row's block to every idx rank
+                p, ln, nm = upload(pinned, origin.device, packed, lengths,
+                                   nmask, copies=self.idx_shards)
+                ts = timer.now()
+                out = step(p, ln, nmask=nm)
+                timer.mark("dispatch", ts)
                 with origin.work():
-                    blocks.append((*copy_back(out["flat"]), 0, B))
+                    blocks.append((*download(out["flat"]), 0, B))
             else:
                 n = self.n_devices
                 bounds = [B * d // n for d in range(n + 1)]
@@ -400,27 +455,38 @@ class TorchMapper:
                         continue  # no row, or padding rows alone
                     with rep.work():
                         launches = sketch_cuda.launches
-                        p, ln, nm = to_device(
-                            rep.device, packed[lo:hi], lengths[lo:hi],
+                        p, ln, nm = upload(
+                            to_device, rep.device, packed[lo:hi],
+                            lengths[lo:hi],
                             None if nmask is None else nmask[lo:hi])
+                        ts = timer.now()
                         out = mapping_step(
                             p, ln, rep.didx, self.k, self.w, pad, slots,
                             nmask=nm, clen=rep.clen, z=self._chain_z,
                             runs=self.runs_only,
                             with_hashes=self.with_hashes,
                         )
+                        timer.mark("dispatch", ts)
                         rep.launches += sketch_cuda.launches - launches
-                        blocks.append((*copy_back(out), lo, hi))
+                        blocks.append((*download(out), lo, hi))
+            ts = timer.now()
             pipe.submit_drain((blocks, slots, rows, row_codes))
+            timer.mark("drain_enqueue_wait", ts)
 
         def drain(blocks, slots, rows, row_codes) -> None:
             # the blocks in row order: each read's result lands under its
             # own index, so overflow rows and reads of other blocks keep
             # their place in the stream
             for out, event, lo, hi in blocks:
+                tw = time.perf_counter()
                 if event is not None:
                     event.synchronize()
                 flat = out.numpy()
+                dt = time.perf_counter() - tw
+                wire["d2h"] += flat.nbytes
+                wire["d2h_s"] += dt
+                timer.add("drain_flat_wait", dt)
+                ts = timer.now()
                 B = hi - lo
                 if flat.ndim == 2:
                     # hash-sharded step: meta in row 0, then the planes,
@@ -438,6 +504,7 @@ class TorchMapper:
                     planes = flat[2 * B :].reshape(-1, lanes)
                 drain_block(count, n_mins, planes, lo, min(hi, len(rows)),
                             slots, rows, row_codes)
+                timer.mark("drain_decode", ts)
 
         def drain_block(count, n_mins, planes, lo, hi, slots, rows,
                         row_codes) -> None:
@@ -477,7 +544,8 @@ class TorchMapper:
                     planes[2][o : o + n], (rw >> 29) & 3, hi_, lo_,
                 )
 
-        pipe = DevicePipeline(dispatch, drain, depth=self.DEPTH,
+        depth = int(os.environ.get("NTLINK_PIPE_DEPTH", self.DEPTH))
+        pipe = DevicePipeline(dispatch, drain, depth=depth,
                               name="ntlink-torch-map")
 
         def deliver(i: int):
@@ -511,6 +579,8 @@ class TorchMapper:
             results.clear()
             next_yield[0] = 0
 
+        if timer.on:
+            named_seqs = timer.pull(named_seqs)
         try:
             budget = 0
             for name, payload in named_seqs:
@@ -542,6 +612,9 @@ class TorchMapper:
             pipe.close()
             secs = time.perf_counter() - t0
             self.stream_seconds += secs
+            self.last_timing = dict(timer.acc)
+            if timer.acc:
+                print(timer.line(), file=sys.stderr)
             self.kernel_launches += sketch_cuda.launches - launches0
             n = self.device_reads + self.host_fallbacks - reads0
             mode = (

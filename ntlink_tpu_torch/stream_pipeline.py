@@ -20,7 +20,8 @@ from __future__ import annotations
 
 import queue
 import threading
-from typing import Callable, List
+import time
+from typing import Callable, Dict, List, Tuple
 
 import numpy as np
 
@@ -108,6 +109,64 @@ class DevicePipeline:
                 pass
         for t in self._threads:
             t.join(timeout=timeout)
+
+
+class PhaseTimer:
+    """Per-phase wall-clock accounting of a stream's hot loop
+    (``NTLINK_TIMING=1`` in ``ntlink_tpu/device_map.py``): seconds and
+    number of spans per key. Each key is written by one thread only, so the
+    seconds of one thread's keys cannot sum past the stream's wall. When
+    `on` is False nothing is recorded and `now` reads no clock."""
+
+    #: the read stream's keys, by the thread that each is timed on
+    THREADS = {
+        "producer": ("reader_pull", "pack", "feed_enqueue_wait"),
+        "feeder": ("h2d_put", "dispatch", "copy_back",
+                   "drain_enqueue_wait"),
+        "drainer": ("drain_flat_wait", "drain_decode"),
+    }
+
+    def __init__(self, on: bool):
+        self.on = on
+        #: key -> (seconds, spans)
+        self.acc: Dict[str, Tuple[float, int]] = {}
+
+    def now(self) -> float:
+        return time.perf_counter() if self.on else 0.0
+
+    def add(self, key: str, seconds: float) -> None:
+        """One span of `seconds` under `key`."""
+        if self.on:
+            s, n = self.acc.get(key, (0.0, 0))
+            self.acc[key] = (s + seconds, n + 1)
+
+    def mark(self, key: str, t0: float) -> float:
+        """Close the span begun at `t0` under `key`; returns the start of
+        the next one."""
+        if not self.on:
+            return 0.0
+        t1 = time.perf_counter()
+        self.add(key, t1 - t0)
+        return t1
+
+    def pull(self, it):
+        """`it`, with every `next` on it timed as ``reader_pull``."""
+        it = iter(it)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(it)
+            except StopIteration:
+                return
+            self.add("reader_pull", time.perf_counter() - t0)
+            yield item
+
+    def line(self) -> str:
+        """``# ntlink timing: key=1.234s/56 ...``, keys sorted."""
+        return "# ntlink timing: " + " ".join(
+            f"{k}={self.acc[k][0]:.3f}s/{self.acc[k][1]}"
+            for k in sorted(self.acc)
+        )
 
 
 def next_pow2(n: int) -> int:

@@ -15,7 +15,10 @@ device time by `record_function` range (`tracing.stage_device_times`:
 unpack, sketch, N windows, select, join, chain, run summary, compaction,
 and what lies outside every range, the copies to the host among it), the
 device's busy share of the stage's wall time, and the five kernels that
-took most. Exits 1 without a CUDA device.
+took most. Every run has ``NTLINK_TIMING=1`` set, and the read stream's
+host-side split (`TorchMapper.last_timing`: seconds per phase, by the
+thread that each is timed on) is printed beside the device split of
+`pair/map-reads`. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -29,7 +32,7 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402  (the dataset and the CLI's argv)
-from ntlink_tpu_torch import cli, pipeline, tracing  # noqa: E402
+from ntlink_tpu_torch import bench, cli, pipeline, tracing  # noqa: E402
 
 STAGES = ("pair/contig-sketch", "pair/map-reads")
 
@@ -81,6 +84,7 @@ def main() -> int:
             ("default", chip_smoke.PAIR_ARGV + ["v=1"]),
             ("lean", chip_smoke.LEAN_ARGV + ["v=1"]))
     tracer = tracing.GLOBAL
+    os.environ["NTLINK_TIMING"] = "1"
     with tempfile.TemporaryDirectory(prefix="ntlink_profile_") as root:
         os.makedirs(os.path.join(root, "data"))
         chip_smoke.write_dataset(os.path.join(root, "data"))
@@ -106,6 +110,12 @@ def main() -> int:
                                  "trace.json"),
                     walls[stage],
                 )
+            # the run's mapper is new and maps one stream, so its stream
+            # seconds are that stream's wall
+            for line in bench.timing_lines(
+                    smi, pipeline.last_mapper.last_timing, stream_s):
+                print(f"profile: {name} pair/map-reads host side:",
+                      line.lstrip("# "))
     return 0
 
 

@@ -15,5 +15,8 @@ setup(
     python_requires=">=3.10",
     install_requires=["numpy"],
     extras_require={"tpu": ["jax"], "torch": ["torch"]},
-    entry_points={"console_scripts": ["ntlink=ntlink_tpu.cli:main"]},
+    entry_points={"console_scripts": [
+        "ntlink=ntlink_tpu.cli:main",
+        "ntlink-torch=ntlink_tpu_torch.cli:main",
+    ]},
 )

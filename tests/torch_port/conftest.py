@@ -4,8 +4,9 @@
 are missing. The tests here need no goldens: each compares the PyTorch port
 with the JAX package on inputs made from a seed. So this hook, which runs
 after that one, takes that one skip back off the items of this directory.
-It also registers the `cuda` marker of tests that need an NVIDIA card, and
-gives each pytest-xdist worker one PyTorch thread.
+It also registers the `cuda` marker of tests that need an NVIDIA card,
+gives each pytest-xdist worker one PyTorch thread, and has the fixture that
+runs a test once without and once with NTLINK_TIMING=1.
 """
 import os
 
@@ -25,6 +26,17 @@ def pytest_configure(config):
     # cores and the plain versions' tensor ops slow down several-fold
     if os.environ.get("PYTEST_XDIST_WORKER"):
         torch.set_num_threads(1)
+
+
+@pytest.fixture(params=[False, True], ids=["plain", "NTLINK_TIMING"])
+def timing_env(request, monkeypatch):
+    """Runs the test without and with the stream's accounting on; the
+    value says which."""
+    if request.param:
+        monkeypatch.setenv("NTLINK_TIMING", "1")
+    else:
+        monkeypatch.delenv("NTLINK_TIMING", raising=False)
+    return request.param
 
 
 @pytest.hookimpl(trylast=True)

@@ -20,9 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
 NO_CARD = "needs a CUDA device"
 
 
-def test_check_supported_refuses_tracing():
-    """It no longer does: v=1 is accepted, like every setting but an
-    unknown backend name."""
+def test_check_supported_accepts_tracing():
+    """v=1 is accepted, like every setting but an unknown backend name."""
     pipeline.check_supported(ScaffoldConfig(target="t.fa", reads=["r.fa"],
                                             v=1))
     pipeline.check_supported(ScaffoldConfig(target="t.fa", reads=["r.fa"]))
@@ -56,9 +55,9 @@ def _run(tmp_path, *args, env=None):
     )
 
 
-def test_cli_prints_tracing_refusal(tmp_path):
-    """v=1 is no longer refused: without a card the command exits 2 for
-    want of the card, and says so."""
+def test_cli_with_tracing_exits_for_want_of_a_card(tmp_path):
+    """v=1 is not refused: without a card the command exits 2 for want of
+    the card, and says so."""
     res = _run(tmp_path, "v=1")
     assert res.returncode == 2
     assert "not yet ported" not in res.stderr

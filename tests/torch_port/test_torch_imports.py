@@ -1,5 +1,7 @@
 """``ntlink_tpu_torch`` is a package of its own: nothing in it, nor in the
-scripts that drive it on the card, imports ``jax`` or ``ntlink_tpu``."""
+scripts and launchers that drive it, imports ``jax``, ``ntlink_tpu`` or the
+repository's root ``bench`` module (the port's bench keeps its own copy of
+what it needs from it)."""
 import ast
 import os
 import subprocess
@@ -12,8 +14,9 @@ from .synthetic import write_dataset
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 PACKAGE = os.path.join(REPO, "ntlink_tpu_torch")
-SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "profile_pair_torch.py"))
-FORBIDDEN = ("jax", "ntlink_tpu")
+SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "profile_pair_torch.py"),
+           "ntLink_torch", "ntLink_rounds_torch")
+FORBIDDEN = ("jax", "ntlink_tpu", "bench")
 
 
 def _sources():
@@ -52,7 +55,9 @@ def test_sources_found():
     rels = {os.path.relpath(p, PACKAGE) for p in paths}
     assert {"graft_entry.py", os.path.join("parallel", "distributed.py"),
             os.path.join("parallel", "sharded_index.py"),
-            os.path.join("parallel", "__init__.py")} <= rels
+            os.path.join("parallel", "__init__.py"), "bench.py",
+            os.path.join("..", "ntLink_torch"),
+            os.path.join("..", "ntLink_rounds_torch")} <= rels
 
 
 @pytest.mark.parametrize("rel", sorted(
@@ -70,9 +75,14 @@ def test_guard_sees_a_forbidden_import(tmp_path):
         "    import jax.numpy as jnp\n"
         "from ntlink_tpu_torch import cli\n"
         "from . import ntlink_tpu\n"
+        "from . import bench\n"
+        "from ntlink_tpu_torch import bench\n"
+        "import bench\n"
+        "from bench import make_dataset\n"
     )
-    assert _forbidden_imports(str(bad)) == [(3, "ntlink_tpu.config"),
-                                            (4, "jax.numpy")]
+    assert sorted(_forbidden_imports(str(bad))) == [(3, "ntlink_tpu.config"),
+                                            (4, "jax.numpy"), (9, "bench"),
+                                            (10, "bench")]
 
 
 BLOCKED_RUN = """

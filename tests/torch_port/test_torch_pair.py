@@ -139,7 +139,7 @@ def test_cli_without_cuda_exits_nonzero(tmp_path):
          "unknown backend=cuda"),
     ],
 )
-def test_cli_rejects_unported(argv, message, capsys, monkeypatch):
+def test_cli_exits_2_with_its_reason(argv, message, capsys, monkeypatch):
     import torch
 
     from ntlink_tpu_torch.cli import main
