@@ -47,9 +47,17 @@ device, hybrid and strong host legs' tallies are equal, the mapper's
 `wire_stats` count the bytes of the batches that ran, every phase of the
 stream's timing split is there and no thread's phases sum past the
 stream's wall; its result line and the split are printed with the card's
-name and power limit. Every phase prints a line; any failure exits
-non-zero before the last line, which is the JSON result. Without a CUDA
-device it exits 1.
+name and power limit. Phase 13, human scale: the JAX package's human
+preset target (750 contigs of 4 Mb, 3.0 Gbase, from the generator of
+``scripts/stress_scale_torch.py``) sketched on the card through the `pair`
+stage's contig path, its ~59 M-minimizer index parsed and built into the
+load-4 bucket table, the table uploaded and read back byte for byte,
+20,000 of its reads mapped with chaining on the card and the first 2,000
+payloads held against the native host path (`scale.bounded_run`), and
+the sketch kernel timed on the sketch's own 8 x 2^21 contig batch; the
+phase checks the disk and memory first and removes its ~6 GB of files.
+Every phase prints a line; any failure exits non-zero before the last
+line, which is the JSON result. Without a CUDA device it exits 1.
 """
 from __future__ import annotations
 
@@ -70,13 +78,15 @@ import numpy as np
 import torch
 
 from ntlink_tpu_torch import (
-    bench, cli, graft_entry, kernel_bench, native, pipeline, tracing,
+    bench, cli, graft_entry, kernel_bench, mapping_step, native, pipeline,
+    scale, tracing,
 )
 from ntlink_tpu_torch.device_map import batch_rows
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
 from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
+from ntlink_tpu_torch.seqio.fastx import stream_codes
 from ntlink_tpu_torch.sketch import TorchHybridSketcher, TorchSketcher
 
 SEED = 20261016
@@ -144,6 +154,13 @@ STEP_RANGES = ("mapping_step/unpack", "mapping_step/sketch",
                "mapping_step/compact")
 SKETCH_KERNEL = "sketch_rows_kernel"
 RANK_TIMEOUT_S = 600
+# phase 13: the JAX package's human preset target (scripts/stress_scale.py)
+# with the bounded run's slice of reads, and the memory it asks to have
+# available: its resident set peaks near 15 GiB (the generator's genome
+# arrays, the 59 M-entry index, the table build's temporaries and the host
+# path's workers)
+SCALE_CONTIGS, SCALE_CONTIG_LEN = 750, 4_000_000
+SCALE_MEM_BYTES = 20 << 30
 
 
 def log(*parts) -> None:
@@ -1144,6 +1161,126 @@ def phase_bench_entry(dev, smi: str) -> dict:
     return launches
 
 
+def scale_dir(need: int) -> str:
+    """A directory for phase 13 on a file system with `need` bytes free:
+    the temporary directory's, else the checkout's."""
+    for base in (tempfile.gettempdir(), REPO):
+        room = scale.host_room(base)
+        log(f"phase 13: df {base}: {room['disk_free'] / 2**30:.1f} GiB "
+            f"free; free: {room['mem_available'] / 2**30:.1f} GiB of "
+            f"{room['mem_total'] / 2**30:.1f} GiB available")
+        if room["mem_available"] < SCALE_MEM_BYTES:
+            fail(f"phase 13: {room['mem_available'] / 2**30:.1f} GiB of "
+                 f"memory available, the phase needs "
+                 f"{SCALE_MEM_BYTES / 2**30:.0f} GiB")
+        if room["disk_free"] >= need:
+            return base
+    fail(f"phase 13: no file system with {need / 2**30:.1f} GiB free for "
+         f"the human-scale files")
+
+
+def contig_batch(target: str, k: int, w: int):
+    """The contig sketcher's first 8 x 2^21 batch of `target`: its first
+    contigs cut into window-aligned chunks as `TorchSketcher` cuts a
+    sequence past MAX_PAD. Returns (codes (8, 2^21) uint8, lengths)."""
+    B = batch_rows(CONTIG_PAD, TorchSketcher("cpu").batch_bases)
+    S = CONTIG_PAD - (k + w - 2)
+    rows = []
+    for _, codes in stream_codes(target):
+        M = len(codes) - (k + w - 2)
+        for lo in range(0, M, S):
+            rows.append(codes[lo : min(lo + S, M) + (k + w - 2)])
+        if len(rows) >= B:
+            break
+    batch = np.zeros((B, CONTIG_PAD), np.uint8)
+    lengths = np.zeros(B, np.int32)
+    for r, row in enumerate(rows[:B]):
+        batch[r, : len(row)] = row
+        lengths[r] = len(row)
+    return batch, lengths
+
+
+def phase_scale(dev, smi: str) -> dict:
+    """Phase 13: a human-size contig index resident on the card, through
+    `scale.bounded_run`, with the sketch kernel's count set to 0 just
+    before it and read just after."""
+    n_reads = scale.BOUNDED_READS
+    need = scale.stress_bytes(SCALE_CONTIGS, SCALE_CONTIG_LEN, n_reads)
+    base = scale_dir(need + (1 << 30))
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="ntlink_scale_", dir=base) as d:
+        t0 = time.perf_counter()
+        scale.write_stress_dataset(d, SCALE_CONTIGS, SCALE_CONTIG_LEN,
+                                   n_reads)
+        log(f"phase 13: {SCALE_CONTIGS} contigs x {SCALE_CONTIG_LEN} b and "
+            f"{n_reads} reads of {scale.READ_LEN} b written in "
+            f"{time.perf_counter() - t0:.1f} s (the generator of "
+            f"scripts/stress_scale_torch.py)")
+        sketch_cuda.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            out = scale.bounded_run(d, n_reads, device=dev,
+                                    check_reads=scale.CHECK_READS,
+                                    log=lambda *a: log("phase 13:", *a))
+        except scale.ScaleCheckError as exc:
+            fail(f"phase 13: {exc}")
+        launches = sketch_cuda.launches
+        sk, table, mp = out["sketch"], out["table"], out["mapping"]
+        n_min = out["parse"]["minimizers"]
+        if n_min <= mapping_step.SMALL_TABLE_ENTRIES \
+                or table["regime"] != "load-4":
+            fail(f"phase 13: {n_min} minimizers, table in the "
+                 f"{table['regime']} regime")
+        if sk["chunked"] != SCALE_CONTIGS or sk["host_fallbacks"] != 0:
+            fail(f"phase 13: {sk['chunked']} chunked contigs, "
+                 f"{sk['host_fallbacks']} host-fallback rows")
+        if min(sk["launches"], mp["launches"]) == 0 \
+                or sk["launches"] + mp["launches"] != launches:
+            fail(f"phase 13: launches {launches}: contig sketch "
+                 f"{sk['launches']}, read mapping {mp['launches']}")
+        if out["payloads_checked"] < scale.CHECK_READS \
+                or mp["reads"] != n_reads:
+            fail(f"phase 13: {mp['reads']} reads mapped, "
+                 f"{out['payloads_checked']} payloads checked")
+        log(f"phase 13: {smi}: {n_min} minimizers of "
+            f"{out['target_bases']} bases; table {table['nb']} buckets "
+            f"(load-4), max_probes {table['max_probes']}, {table['bytes']} "
+            f"bytes, built in {table['seconds']:.1f} s, uploaded in "
+            f"{out['upload']['seconds']:.2f} s and read back equal; "
+            f"{mp['reads_per_s']:.1f} reads/s with chaining on the card, "
+            f"{out['payloads_checked']} payloads equal to HostMapper's; "
+            f"peak device memory {mp['peak_device_mib']:.1f} MiB, peak host RSS "
+            f"{mp['peak_rss_gib']:.2f} GiB; {launches} sketch kernel "
+            f"launches ({sk['launches']} contig sketch, {mp['launches']} "
+            f"read mapping), contig sketch {sk['gbase_per_s']:.3f} Gbase/s")
+        # the kernel on the sketch's own contig batch, after the count was
+        # read: the launches of the comparison and the timing do not count
+        k, w = scale.K, scale.W
+        codes_np, lengths_np = contig_batch(os.path.join(d, "target.fa"),
+                                            k, w)
+    codes = torch.from_numpy(codes_np).to(dev)
+    lengths = torch.from_numpy(lengths_np).to(dev)
+    err = compare(sketch_cuda.sketch_rows(codes, lengths, k, w),
+                  sketch_torch.sketch_rows_ref(codes, lengths, k, w),
+                  lengths, k)
+    if err != 0.0:
+        fail("phase 13: kernel != plain version on the contig batch")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    ms = cuda_ms(lambda: sketch_cuda.sketch_rows(codes, lengths, k, w),
+                 flush=flush)
+    bound_ms, bound_by = sketch_bound_ms(*codes.shape, k, w)
+    log(f"phase 13: {smi}: sketch kernel on the 3 Gbase sketch's first "
+        f"contig batch ({codes.shape[0]} x {codes.shape[1]}): "
+        f"max_abs_err={err}, {ms:.4f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), share of bound {bound_ms / ms:.3f}; "
+        f"{time.perf_counter() - t_phase:.1f} s for the phase, its files "
+        f"removed")
+    return {"launches": launches, "scale_contig_batch_ms": ms,
+            "scale_contig_batch_bound_ms": bound_ms,
+            "scale_contig_batch_share_of_bound": bound_ms / ms,
+            "scale_sketch_gbase_per_s": sk["gbase_per_s"]}
+
+
 def phase_new_paths(dev) -> dict:
     """Phases 7-10 and 12 on the smaller draft with its reads in two files; the
     references are one-process, one-device card runs of the port's CLI."""
@@ -1269,10 +1406,12 @@ def run_phases() -> list:
     kbench = phase_bench(dev)
     new_paths = phase_new_paths(dev)
     entry = phase_bench_entry(dev, smi)
+    human = phase_scale(dev, smi)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
     counts["launches_by_path"]["6 kernel bench"] = kbench["sketch_rows"]
     counts["launches_by_path"].update(new_paths)
     counts["launches_by_path"]["11 bench entry"] = entry["sketch_rows"]
+    counts["launches_by_path"]["scale"] = human.pop("launches")
     log(f"nvidia-smi: {smi}")
     kernels = json.dumps({"kernels": [{
         "name": "sketch_rows",
@@ -1282,6 +1421,7 @@ def run_phases() -> list:
         "also_replaces": ALSO_REPLACES,
         **counts,
         **kern,
+        **human,
     }, {
         "name": "alu_peak",
         "route": "cuda",

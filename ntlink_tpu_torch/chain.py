@@ -20,8 +20,14 @@ import torch
 from torch.profiler import record_function
 
 #: the `record_function` ranges of this module (each function below runs
-#: inside one; without a profiler a range is an empty call)
-STAGES = ("chain/accept", "chain/run-summary")
+#: inside one; without a profiler a range is an empty call), then the
+#: phases of `chain_anchors_device` inside "chain/accept" (the phases that
+#: ``scripts/probe_chain_phases.py`` times for the JAX function: z filter,
+#: noisy span, run grouping, run contigs, subsume; the keep mask is
+#: "chain/accept"'s own)
+STAGES = ("chain/accept", "chain/run-summary", "chain/z-filter",
+          "chain/noisy-span", "chain/run-group", "chain/run-cid",
+          "chain/subsume")
 
 #: run lanes per read; a read with more runs is chained on the exact host
 #: path (mesh.RUN_LANES)
@@ -83,56 +89,64 @@ def chain_anchors_device(found, cid, cpos, rlens, clen, z: int, k: int):
     R = RUN_LANES
 
     # 1. z filter (cid is in range wherever found)
-    cidc = cid.to(torch.int64).clamp(0, NC - 1)
-    kept0 = found & (clen.to(torch.int64)[cidc] >= z)
+    with record_function("chain/z-filter"):
+        cidc = cid.to(torch.int64).clamp(0, NC - 1)
+        kept0 = found & (clen.to(torch.int64)[cidc] >= z)
 
     # 2. noisy-span filter: per (read, contig) min/max contig position and
     # anchor count in (B, NC + 1) tables (last column = dump); a contig with
     # >= 2 anchors whose span outruns read_len + k drops entirely
-    tcid = torch.where(kept0, cidc, NC)
-    cp = cpos.to(torch.int64)
-    amin = torch.full((B, NC + 1), _I32_MAX, dtype=torch.int64, device=dev)
-    amin.scatter_reduce_(1, tcid, cp, "amin")
-    amax = torch.full((B, NC + 1), -1, dtype=torch.int64, device=dev)
-    amax.scatter_reduce_(1, tcid, cp, "amax")
-    acnt = torch.zeros((B, NC + 1), dtype=torch.int64, device=dev)
-    acnt.scatter_add_(1, tcid, torch.ones_like(tcid))
-    noisy = (acnt >= 2) & (
-        (amax - amin) > (rlens.to(torch.int64) + k)[:, None]
-    )
-    kept1 = kept0 & ~noisy.gather(1, tcid)
+    with record_function("chain/noisy-span"):
+        tcid = torch.where(kept0, cidc, NC)
+        cp = cpos.to(torch.int64)
+        amin = torch.full((B, NC + 1), _I32_MAX, dtype=torch.int64,
+                          device=dev)
+        amin.scatter_reduce_(1, tcid, cp, "amin")
+        amax = torch.full((B, NC + 1), -1, dtype=torch.int64, device=dev)
+        amax.scatter_reduce_(1, tcid, cp, "amax")
+        acnt = torch.zeros((B, NC + 1), dtype=torch.int64, device=dev)
+        acnt.scatter_add_(1, tcid, torch.ones_like(tcid))
+        noisy = (acnt >= 2) & (
+            (amax - amin) > (rlens.to(torch.int64) + k)[:, None]
+        )
+        kept1 = kept0 & ~noisy.gather(1, tcid)
 
     # 3. consecutive runs over kept anchors: a kept anchor starts a run iff
     # the previous kept anchor's cid differs
-    runstart = kept1 & (_prev_kept(kept1, cidc) != cidc)
-    run_id = runstart.to(torch.int64).cumsum(dim=1) - 1
-    overflow = run_id[:, -1] + 1 > R
-    rid = torch.where(kept1, run_id.clamp(max=R - 1), R)
-    rs_lanes, rvalid = _mask_lanes(runstart, R)
-    run_cid = torch.where(rvalid, cidc.gather(1, rs_lanes), -1)
+    with record_function("chain/run-group"):
+        runstart = kept1 & (_prev_kept(kept1, cidc) != cidc)
+        run_id = runstart.to(torch.int64).cumsum(dim=1) - 1
+        overflow = run_id[:, -1] + 1 > R
+        rid = torch.where(kept1, run_id.clamp(max=R - 1), R)
+    with record_function("chain/run-cid"):
+        rs_lanes, rvalid = _mask_lanes(runstart, R)
+        run_cid = torch.where(rvalid, cidc.gather(1, rs_lanes), -1)
 
     # 4. specific-mode subsume: every contig sighted strictly between the
     # first occurrence of a contig c and a later occurrence of c is doomed
     # (all of its runs drop); between[q] = exists i < q with is_first[i] and
     # last_occ[i] > q, one exclusive prefix-max over O(R^2) reductions
-    r = torch.arange(R, device=dev)
-    same = (
-        rvalid[:, :, None]
-        & rvalid[:, None, :]
-        & (run_cid[:, :, None] == run_cid[:, None, :])
-    )
-    has_earlier = (same & (r[None, :, None] > r[None, None, :])).any(dim=2)
-    is_first = rvalid & ~has_earlier
-    last_occ = torch.where(same, r[None, None, :], -1).amax(dim=2)
-    f = torch.where(is_first, last_occ, -1)
-    pmax = f.cummax(dim=1).values
-    pmax_excl = torch.cat(
-        [torch.full((B, 1), -1, dtype=f.dtype, device=dev), pmax[:, :-1]],
-        dim=1,
-    )
-    between = rvalid & (pmax_excl > r[None, :])
-    doomed = (same & between[:, None, :]).any(dim=2)
-    keep_run = rvalid & ~doomed
+    with record_function("chain/subsume"):
+        r = torch.arange(R, device=dev)
+        same = (
+            rvalid[:, :, None]
+            & rvalid[:, None, :]
+            & (run_cid[:, :, None] == run_cid[:, None, :])
+        )
+        has_earlier = (same & (r[None, :, None] > r[None, None, :])).any(
+            dim=2)
+        is_first = rvalid & ~has_earlier
+        last_occ = torch.where(same, r[None, None, :], -1).amax(dim=2)
+        f = torch.where(is_first, last_occ, -1)
+        pmax = f.cummax(dim=1).values
+        pmax_excl = torch.cat(
+            [torch.full((B, 1), -1, dtype=f.dtype, device=dev),
+             pmax[:, :-1]],
+            dim=1,
+        )
+        between = rvalid & (pmax_excl > r[None, :])
+        doomed = (same & between[:, None, :]).any(dim=2)
+        keep_run = rvalid & ~doomed
 
     # 5. an anchor survives iff its run does; overflow rows are wiped
     keep_run = torch.cat(

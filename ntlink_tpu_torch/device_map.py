@@ -144,7 +144,9 @@ class TorchMapper:
                  batch_bases: int = 8_000_000, device=None, prechain=None,
                  runs_only: bool = False, with_hashes: bool = False,
                  devices=None, index_sharding: str = "replicated",
-                 idx_shards: int = 0):
+                 idx_shards: int = 0, table=None):
+        """`table`: a `DeviceIndex.build_table` result of this index to
+        upload, in place of building one (replicated layout)."""
         self.devices = device_mod.resolve_all(device, devices)
         self.device = self.devices[0]
         self.n_devices = len(self.devices)
@@ -191,9 +193,12 @@ class TorchMapper:
             self._mesh2d = make_mesh_2d(self.idx_shards, self.devices)
         else:
             self.idx_shards = 1
-            table = DeviceIndex.build_table(
-                index.hashes, index.contig_ids, index.positions,
-                index.strands)
+            t0 = time.perf_counter()
+            if table is None:
+                table = DeviceIndex.build_table(
+                    index.hashes, index.contig_ids, index.positions,
+                    index.strands)
+            t1 = time.perf_counter()
             on_device: Dict[torch.device, tuple] = {}
             for dev in self.devices:
                 if dev not in on_device:  # one copy per device
@@ -207,8 +212,12 @@ class TorchMapper:
                              own_stream=self.n_devices > 1))
             self.didx = self._replicas[0].didx
             for dev in on_device:
-                if dev.type == "cuda" and self.n_devices > 1:
+                if dev.type == "cuda":
                     torch.cuda.synchronize(dev)  # tables are in place
+            #: host seconds of the table's build (0 for a given `table`)
+            #: and of its upload to every device
+            self.build_seconds = t1 - t0
+            self.upload_seconds = time.perf_counter() - t1
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0

@@ -71,6 +71,9 @@ last_hybrid = None
 last_sketcher = None
 #: wall seconds of the latest `pair_stage`'s read mapping (`map_reads`)
 last_map_seconds = 0.0
+#: wall seconds of the latest `pair_stage`'s contig index parse
+#: (`ContigIndex.from_tsv`)
+last_index_seconds = 0.0
 #: sketch kernel launches of each round of the latest `run_rounds`
 round_launches: List[int] = []
 
@@ -538,7 +541,7 @@ def make_mapper(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths,
 
 def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
     """Mapping + scaffold-graph stage. Returns the DOT artifact path."""
-    global last_map_seconds
+    global last_map_seconds, last_index_seconds
     check_supported(cfg)
     sketch_device, devices = split_devices(cfg, device)
     prefix = cfg.resolved_prefix()
@@ -570,9 +573,17 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
             tsv = ensure_contig_sketch_tsv(cfg, cfg.k, cfg.w,
                                            device=sketch_device)
             log("Loading contig index", tsv)
+            t0 = time.perf_counter()
             index = ContigIndex.from_tsv(tsv)
+            last_index_seconds = time.perf_counter() - t0
             log("Index size:", len(index))
         mapper = make_mapper(cfg, index, contig_lengths, devices)
+        if last_mapper is not None and last_mapper.index_sharding != "hash":
+            didx = last_mapper.didx
+            log(f"Contig table: {didx.t_bkt.shape[0]} buckets, max_probes "
+                f"{didx.max_probes}, {didx.t_bkt.nbytes} bytes per device; "
+                f"built in {last_mapper.build_seconds:.1f} s, uploaded in "
+                f"{last_mapper.upload_seconds:.1f} s")
         t0 = time.perf_counter()
         if n_processes > 1:
             # per-read-file sharding: each process maps its files into

@@ -1,0 +1,327 @@
+"""Human-scale tools of the port: the stress dataset, and a bounded run of a
+full contig index on one device.
+
+`write_stress_dataset` is a copy of the generator of
+``scripts/stress_scale.py`` (the same files, byte for byte, from the same
+arguments): one random genome from ``default_rng(5)``, cut into contigs
+with GAP-base gaps left out of the draft, and reads of READ_LEN bases drawn
+across it with 4% substitutions, half of them reverse-complemented.
+`gapped` puts three N runs into every contig (a later round's input), and
+a marker file names the dataset, so that a directory holding another one
+is emptied first. The JAX package's human preset is 750 contigs of 4 Mb
+(3.0 Gbase) and 2,500,000 reads (30 Gbase, 10x).
+
+`bounded_run` is ``scripts/stress_3g_bounded.py``'s measurement: the
+contig index of such a target resident on one device, and a bounded slice
+of its reads mapped against it (on-device chaining, the default run's
+payload). It reports each step on its own (the contig sketch when there
+is no sketch yet, the TSV parse, the bucket table's build, its upload, the
+device's memory, the read slice's rate) and holds two checks, raising
+`ScaleCheckError` when either fails: the table read back from the device
+equals the host's table byte for byte, and the first `check_reads` reads'
+raw payloads equal those of `host_map.HostMapper`, the native C path that
+shares no code with the device step.
+"""
+from __future__ import annotations
+
+import itertools
+import os
+import resource
+import shutil
+import time
+
+import numpy as np
+import torch
+
+from . import device as device_mod
+from . import mapping_step, pipeline
+from .config import ScaffoldConfig
+from .device_map import TorchMapper
+from .host_map import HostMapper
+from .index import ContigIndex
+from .mapping_step import BUCKET, DeviceIndex
+from .ops import sketch_cuda
+from .seqio.fastx import stream_codes
+
+SEED = 5
+READ_LEN = 12_000
+GAP = 500
+K, W, Z = 32, 100, 1000
+#: reads of the bounded slice, and how many of them are held against
+#: HostMapper (stress_3g_bounded.py's default slice)
+BOUNDED_READS = 20_000
+CHECK_READS = 2_000
+
+
+class ScaleCheckError(RuntimeError):
+    """A check of `bounded_run` failed."""
+
+
+def write_stress_dataset(workdir: str, n_contigs: int, contig_len: int,
+                         n_reads: int, gapped: bool = False) -> None:
+    """target.fa and reads.fa in `workdir`, as ``stress_scale.py`` writes
+    them; a dataset of these arguments already there is kept."""
+    os.makedirs(workdir, exist_ok=True)
+
+    def path(name: str) -> str:
+        return os.path.join(workdir, name)
+
+    ascii_ = np.frombuffer(b"ACGT", np.uint8)
+    comp = np.zeros(256, np.uint8)
+    for a, b in zip(b"ACGT", b"TGCA"):
+        comp[a] = b
+    rng = np.random.default_rng(SEED)
+
+    # the dataset's identity holds the gapped flag and the size: a cached
+    # target.fa of another configuration would misstate what ran
+    marker = path(
+        f"target.fa.{'gapped' if gapped else 'gapless'}"
+        f".{n_contigs}x{contig_len}.r{n_reads}"
+    )
+    if os.path.exists(path("target.fa")) and not os.path.exists(marker):
+        for f in os.listdir(workdir):
+            if os.path.isdir(path(f)):
+                shutil.rmtree(path(f))
+            else:
+                os.remove(path(f))
+
+    t0 = time.time()
+    if os.path.exists(path("target.fa")):
+        return
+    # one uint8 ASCII genome; contigs are slices of it
+    total_len = n_contigs * contig_len + (n_contigs - 1) * GAP
+    genome = ascii_[rng.integers(0, 4, total_len, dtype=np.uint8)]
+    with open(path("target.fa"), "wb") as fh:
+        for i in range(n_contigs):
+            off = i * (contig_len + GAP)
+            ctg = genome[off : off + contig_len]
+            if gapped:
+                # interior N runs, as a later round's draft has them; the
+                # reads still come from the gapless truth
+                ctg = ctg.copy()
+                for _ in range(3):
+                    g0 = int(rng.integers(contig_len // 10, contig_len - 1000))
+                    ctg[g0 : g0 + int(rng.integers(100, 800))] = ord("N")
+            fh.write(b">c%d\n" % i)
+            fh.write(ctg.tobytes())
+            fh.write(b"\n")
+    print(f"target written in {time.time()-t0:.1f}s", flush=True)
+
+    chunk = 2048  # the gather index is chunk x READ_LEN int64 (~200 MB)
+    err_n = int(READ_LEN * 0.04)
+    with open(path("reads.fa"), "wb") as fh:
+        for base_r in range(0, n_reads, chunk):
+            n = min(chunk, n_reads - base_r)
+            starts = rng.integers(0, total_len - READ_LEN, n)
+            mat = genome[starts[:, None] + np.arange(READ_LEN)]
+            # substitution errors
+            rows = np.repeat(np.arange(n), err_n)
+            cols = rng.integers(0, READ_LEN, n * err_n)
+            mat[rows, cols] = ascii_[rng.integers(0, 4, n * err_n,
+                                                  dtype=np.uint8)]
+            # reverse-complement half the rows
+            flip = rng.random(n) < 0.5
+            mat[flip] = comp[mat[flip][:, ::-1]]
+            for j in range(n):
+                fh.write(b">r%d\n" % (base_r + j))
+                fh.write(mat[j].tobytes())
+                fh.write(b"\n")
+    del genome
+    open(marker, "w").close()
+    print(
+        f"dataset generated in {time.time()-t0:.1f}s "
+        f"({n_contigs*contig_len/1e6:.0f} Mb target, "
+        f"{n_reads*READ_LEN/1e6:.0f} Mb reads)",
+        flush=True,
+    )
+
+
+def peak_rss_gib() -> float:
+    """This process's peak resident set so far, GiB."""
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def host_room(path: str) -> dict:
+    """Free bytes on the file system of `path` and available memory (the
+    `df` and `free` of the host)."""
+    mem = {}
+    with open("/proc/meminfo") as fh:
+        for line in fh:
+            key, value = line.split(":", 1)
+            mem[key] = int(value.split()[0]) * 1024
+    return {"disk_free": shutil.disk_usage(path).free,
+            "mem_available": mem["MemAvailable"], "mem_total": mem["MemTotal"]}
+
+
+def stress_bytes(n_contigs: int, contig_len: int, n_reads: int) -> int:
+    """Bytes of the files a stress dataset and its contig sketch take: the
+    two FASTA files and the TSV (about 26 bytes per minimizer, 2/(w+1)
+    minimizers per base)."""
+    target = n_contigs * (contig_len + 8)
+    reads = n_reads * (READ_LEN + 12)
+    tsv = int(n_contigs * contig_len * 2 / (W + 1) * 26)
+    return target + reads + tsv
+
+
+def _same_payload(a, b) -> bool:
+    """Two (name, length, raw) items of a per-anchor stream carry the same
+    read, the same anchor count and the same rpos, cid, cpos and strand
+    bits (device rows carry no hash planes)."""
+    if a[:2] != b[:2] or (a[2] is None) != (b[2] is None):
+        return False
+    if a[2] is None:
+        return True
+    n = a[2][0]
+    return n == b[2][0] and all(
+        np.array_equal(x[:n], y[:n]) for x, y in zip(a[2][1:5], b[2][1:5]))
+
+
+def bounded_run(d: str, n_reads: int = BOUNDED_READS, device=None,
+                check_reads: int = CHECK_READS, threads: int = 0,
+                log=print) -> dict:
+    """The contig index of `d`/target.fa on `device` (default the card) and
+    the first `n_reads` reads of `d`/reads.fa mapped against it; sketches
+    the target through the `pair` stage's contig path when its TSV is not
+    there yet. Returns the readings (seconds, counts, bytes, rates)."""
+    dev = device_mod.resolve(device)
+    cuda = dev.type == "cuda"
+    target = os.path.join(d, "target.fa")
+    reads = os.path.join(d, "reads.fa")
+    cfg = ScaffoldConfig(target=target, reads=[reads], k=K, w=W, z=Z)
+    out = {"device": torch.cuda.get_device_name(dev) if cuda else str(dev)}
+
+    contig_lengths = pipeline.read_scaffold_lengths(target)
+    out["target_bases"] = sum(contig_lengths.values())
+    pipeline.last_sketcher = None
+    launches0 = sketch_cuda.launches
+    t0 = time.perf_counter()
+    tsv = pipeline.ensure_contig_sketch_tsv(cfg, K, W, device=dev)
+    if cuda:
+        torch.cuda.synchronize(dev)
+    sk = pipeline.last_sketcher
+    if sk is not None:
+        out["sketch"] = {
+            "seconds": time.perf_counter() - t0,
+            "stream_seconds": sk.stream_seconds,
+            "launches": sketch_cuda.launches - launches0,
+            "device_rows": sk.device_rows, "chunked": sk.chunked,
+            "host_fallbacks": sk.host_fallbacks,
+            "batches_by_pad": {f"{L}{'N' if n else ''}": c for (L, n), c
+                               in sk.batches_by_pad.items()},
+            "gbase_per_s": out["target_bases"] / sk.stream_seconds / 1e9,
+        }
+        log(f"contig sketch: {out['target_bases']} bases in "
+            f"{out['sketch']['seconds']:.1f} s with the TSV (stream "
+            f"{sk.stream_seconds:.1f} s = "
+            f"{out['sketch']['gbase_per_s']:.3f} Gbase/s), "
+            f"{out['sketch']['launches']} sketch kernel launches, "
+            f"{sk.chunked} chunked contigs, {sk.device_rows} device rows, "
+            f"batches by pad {out['sketch']['batches_by_pad']}, "
+            f"{sk.host_fallbacks} host-fallback rows")
+
+    t0 = time.perf_counter()
+    index = ContigIndex.from_tsv(tsv)
+    n = len(index)
+    out["parse"] = {"seconds": time.perf_counter() - t0, "minimizers": n,
+                    "contigs": len(index.contig_names),
+                    "tsv_bytes": os.path.getsize(tsv),
+                    "peak_rss_gib": peak_rss_gib()}
+    log(f"index parse: {n} minimizers, {len(index.contig_names)} contigs in "
+        f"{out['parse']['seconds']:.1f} s, peak host RSS "
+        f"{out['parse']['peak_rss_gib']:.2f} GiB")
+
+    t0 = time.perf_counter()
+    table = DeviceIndex.build_table(index.hashes, index.contig_ids,
+                                    index.positions, index.strands)
+    build_s = time.perf_counter() - t0
+    t_bkt, mask, max_probes = table
+    regime = ("load-4" if n > mapping_step.SMALL_TABLE_ENTRIES
+              else "load-2")
+    out["table"] = {"seconds": build_s, "nb": int(t_bkt.shape[0]),
+                    "max_probes": int(max_probes), "regime": regime,
+                    "bytes": int(t_bkt.nbytes),
+                    "gather_width": int(max_probes) * BUCKET}
+    log(f"table build: {t_bkt.shape[0]} buckets of {BUCKET} ({regime}, "
+        f"{n / t_bkt.shape[0]:.2f} entries per bucket), max_probes "
+        f"{max_probes} (a join gathers {max_probes * BUCKET} entries per "
+        f"query), {t_bkt.nbytes} bytes, in {build_s:.1f} s")
+
+    clen = np.array([contig_lengths[c] for c in index.contig_names],
+                    np.int32)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    mapper = TorchMapper(index, K, W, device=dev, prechain=(clen, Z),
+                         table=table)
+    out["upload"] = {"seconds": mapper.upload_seconds}
+    if cuda:
+        free, total = torch.cuda.mem_get_info(dev)
+        out["upload"].update(allocated=torch.cuda.memory_allocated(dev),
+                             free=free, total=total)
+    log(f"upload: {mapper.upload_seconds:.2f} s"
+        + (f"; device memory allocated {out['upload']['allocated']} bytes, "
+           f"free {free} of {total}" if cuda else ""))
+    if not mapper.prechained:
+        raise ScaleCheckError("the mapper does not chain on the device")
+
+    back = mapper.didx.t_bkt.cpu().numpy().view(np.uint32)
+    same = (back.shape == t_bkt.shape and np.array_equal(back, t_bkt)
+            and (mapper.didx.mask, mapper.didx.max_probes)
+            == (mask, max_probes))
+    out["table_equal"] = bool(same)
+    if not same:
+        raise ScaleCheckError("the table read back from the device differs "
+                              "from the host's")
+    log(f"check: the table read back from {dev} equals the host's, "
+        f"{t_bkt.nbytes} bytes")
+    del back, table, t_bkt
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    kept = []
+    n_mapped = bases = 0
+    t0 = time.perf_counter()
+    for item in mapper.map_stream_raw(
+            itertools.islice(stream_codes(reads), n_reads)):
+        if len(kept) < check_reads:
+            kept.append(item)
+        n_mapped += 1
+        bases += item[1]
+    if cuda:
+        torch.cuda.synchronize(dev)
+    map_s = time.perf_counter() - t0
+    out["mapping"] = {
+        "reads": n_mapped, "bases": bases, "seconds": map_s,
+        "reads_per_s": n_mapped / map_s, "mbase_per_s": bases / map_s / 1e6,
+        "host_fallbacks": mapper.host_fallbacks,
+        "launches": mapper.kernel_launches,
+        "peak_device_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
+                            if cuda else None),
+        "peak_rss_gib": peak_rss_gib(),
+    }
+    m = out["mapping"]
+    log(f"mapped {n_mapped} reads / {bases / 1e6:.0f} Mbase against the "
+        f"full index in {map_s:.1f} s -> {m['reads_per_s']:.1f} reads/s, "
+        f"{m['mbase_per_s']:.1f} Mbase/s; {mapper.kernel_launches} sketch "
+        f"kernel launches, {mapper.host_fallbacks} host-fallback reads"
+        + (f"; peak device memory {m['peak_device_mib']:.1f} MiB"
+           if cuda else "")
+        + f"; peak host RSS {m['peak_rss_gib']:.2f} GiB")
+
+    host = HostMapper(index, K, W, threads=threads or os.cpu_count() or 1,
+                      prechain=(clen, Z))
+    t0 = time.perf_counter()
+    want = list(host.map_stream_raw(
+        itertools.islice(stream_codes(reads), len(kept))))
+    host_s = time.perf_counter() - t0
+    bad = [a[0] for a, b in zip(kept, want) if not _same_payload(a, b)]
+    out["payloads_checked"] = len(kept)
+    out["payloads_with_anchors"] = sum(a[2] is not None for a in kept)
+    out["payloads_equal"] = not bad and len(want) == len(kept)
+    if not out["payloads_equal"]:
+        raise ScaleCheckError(
+            f"{len(bad)} of {len(kept)} payloads differ from HostMapper's "
+            f"(first: {bad[:3]})")
+    log(f"check: {len(kept)} payloads ({out['payloads_with_anchors']} with "
+        f"anchors) equal HostMapper's, read by read (host path "
+        f"{len(kept) / host_s:.1f} reads/s on {host.threads} threads)")
+    return out

@@ -23,7 +23,7 @@ import resource
 import sys
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclass
@@ -44,6 +44,11 @@ class Tracer:
         self.torch_profile_dir = torch_profile_dir or os.environ.get(
             "NTLINK_TORCH_PROFILE"
         )
+        #: a CUDA device whose peak allocated bytes over each stage go to
+        #: `device_peak_bytes` by stage name (the spans and their JSON stay
+        #: those of the JAX package)
+        self.device = None
+        self.device_peak_bytes: Dict[str, int] = {}
 
     def _start_profile(self, name: str):
         """Start a ``torch.profiler`` capture for stage `name`; returns
@@ -74,11 +79,18 @@ class Tracer:
         prof = None
         if self.torch_profile_dir:
             prof, trace_path = self._start_profile(name)
+        if self.device is not None:
+            import torch
+
+            torch.cuda.reset_peak_memory_stats(self.device)
         t0 = time.time()
         c0 = time.process_time()
         try:
             yield
         finally:
+            if self.device is not None:
+                self.device_peak_bytes[name] = torch.cuda.max_memory_allocated(
+                    self.device)
             if prof is not None:
                 prof.stop()
                 prof.export_chrome_trace(trace_path)
@@ -123,12 +135,14 @@ def enable(torch_profile_dir: Optional[str] = None) -> Tracer:
 def stage_device_times(trace_path: str) -> dict:
     """Device time by `record_function` range, from one Chrome trace that
     the profile hook wrote on a card. A kernel or copy on the device
-    belongs to the range whose device-side annotation spans it on its
-    stream. Returns {"stages": {range name: {"us": device microseconds of
-    its kernels and copies, "events": their count}}, "unattributed_us":
-    device time outside every range, "total_us": all of it, "kernels":
-    {kernel name: microseconds}}."""
+    belongs to the innermost range whose device-side annotation spans it
+    on its stream (ranges nest: "chain/accept" holds its phases). Returns
+    {"stages": {range name: {"us": device microseconds of its kernels and
+    copies, "events": their count}}, "unattributed_us": device time
+    outside every range, "total_us": all of it, "kernels": {kernel name:
+    microseconds}}."""
     import bisect
+    import itertools
 
     with open(trace_path) as fh:
         events = json.load(fh)["traceEvents"]
@@ -143,19 +157,28 @@ def stage_device_times(trace_path: str) -> dict:
                 (e["ts"], e["ts"] + e["dur"], e["name"]))
         elif cat in ("kernel", "gpu_memcpy", "gpu_memset"):
             work.append(e)
-    starts = {}
+    starts, reach = {}, {}
     for key, spans in ranges.items():
-        spans.sort()
+        # by start, an enclosing range before the ranges it holds
+        spans.sort(key=lambda s: (s[0], -s[1]))
         starts[key] = [s[0] for s in spans]
+        # the latest end of any range that starts at or before each one
+        reach[key] = list(itertools.accumulate((s[1] for s in spans), max))
     out = {"stages": {}, "unattributed_us": 0.0, "total_us": 0.0,
            "kernels": {}}
     for e in work:
         key = (e["pid"], e["tid"])
         name = None
         if key in ranges:
+            end = e["ts"] + e["dur"]
             i = bisect.bisect_right(starts[key], e["ts"]) - 1
-            if i >= 0 and e["ts"] + e["dur"] <= ranges[key][i][1] + 1e-3:
-                name = ranges[key][i][2]
+            # back from the latest range that starts before the event, as
+            # long as a range that far back can still reach past its end
+            while i >= 0 and end <= reach[key][i] + 1e-3:
+                if end <= ranges[key][i][1] + 1e-3:
+                    name = ranges[key][i][2]
+                    break
+                i -= 1
         out["total_us"] += e["dur"]
         if e.get("cat") == "kernel":
             out["kernels"][e["name"]] = (

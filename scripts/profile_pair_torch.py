@@ -12,8 +12,11 @@ which writes one Chrome trace per stage. Prints each run's stage,
 contig-sketch and mapping-stream wall seconds, and for the
 `pair/contig-sketch` and `pair/map-reads` traces of each profiled run the
 device time by `record_function` range (`tracing.stage_device_times`:
-unpack, sketch, N windows, select, join, chain, run summary, compaction,
-and what lies outside every range, the copies to the host among it), the
+unpack, sketch, N windows, select, join, chaining by phase as
+``scripts/probe_chain_phases.py`` splits it for the JAX package (z filter,
+noisy span, run grouping, run contigs, subsume, and the keep mask under
+"chain/accept"), run summary, compaction, and what lies outside every
+range, the copies to the host among it), the
 device's busy share of the stage's wall time, and the five kernels that
 took most. Every run has ``NTLINK_TIMING=1`` set, and the read stream's
 host-side split (`TorchMapper.last_timing`: seconds per phase, by the

@@ -184,3 +184,27 @@ def test_card_named_twice_matches_one_device(kind):
     assert n_hits > 30
     assert min(two.launches_by_device()) > 0
     assert two.kernel_launches >= one.kernel_launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("load4", [False, True])
+def test_bounded_scale_run_on_the_card(tmp_path, monkeypatch, load4):
+    """`scale.bounded_run` on the card at a small size, with the bucket
+    table in each load regime: the table read back from the card equals
+    the host's, and every read's payload equals the native host path's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch import mapping_step, scale
+
+    if load4:
+        monkeypatch.setattr(mapping_step, "SMALL_TABLE_ENTRIES", 1_000)
+    d = str(tmp_path / "scale")
+    scale.write_stress_dataset(d, 4, 2_500_000, 300)
+    out = scale.bounded_run(d, 300, device="cuda", check_reads=300,
+                            log=lambda *a: None)
+    assert out["table"]["regime"] == ("load-4" if load4 else "load-2")
+    assert out["table_equal"] and out["payloads_equal"]
+    assert out["payloads_checked"] == 300
+    assert out["sketch"]["chunked"] == 4 and out["sketch"]["launches"] > 0
+    assert out["mapping"]["launches"] > 0
+    assert out["mapping"]["peak_device_mib"] > 0

@@ -14,8 +14,12 @@ from .synthetic import write_dataset
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 PACKAGE = os.path.join(REPO, "ntlink_tpu_torch")
-SCRIPTS = ("chip_smoke.py", os.path.join("scripts", "profile_pair_torch.py"),
-           "ntLink_torch", "ntLink_rounds_torch")
+SCRIPTS = ("chip_smoke.py", "ntLink_torch", "ntLink_rounds_torch") + tuple(
+    os.path.join("scripts", name) for name in (
+        "profile_pair_torch.py", "stress_3g_bounded_torch.py",
+        "stress_scale_torch.py", "measure_scaling_torch.py",
+        "probe_batch_torch.py", "probe_step_torch.py",
+        "probe_hybrid_torch.py"))
 FORBIDDEN = ("jax", "ntlink_tpu", "bench")
 
 

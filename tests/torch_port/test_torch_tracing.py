@@ -152,3 +152,35 @@ def test_stage_device_times_attributes_by_stream_and_span(tmp_path):
         "unattributed_us": 35.0, "total_us": 70.0,
         "kernels": {"k1": 60.0, "k2": 5.0},
     }
+
+
+def test_stage_device_times_takes_the_innermost_range(tmp_path):
+    """Nested ranges ("chain/accept" around its phases): device work counts
+    for the innermost range that spans it, the enclosing range keeps what
+    lies between and after its phases, and work past every range counts
+    for none."""
+    def ev(cat, ts, dur, name):
+        return {"ph": "X", "cat": cat, "pid": 0, "tid": 3, "ts": ts,
+                "dur": dur, "name": name}
+
+    events = [
+        ev("gpu_user_annotation", 100, 300, "chain/accept"),
+        ev("gpu_user_annotation", 100, 50, "chain/z-filter"),
+        ev("gpu_user_annotation", 160, 100, "chain/noisy-span"),
+        ev("gpu_user_annotation", 170, 20, "inner"),
+        ev("kernel", 100, 10, "z"),      # same start as its two ranges
+        ev("kernel", 175, 10, "i"),      # three ranges deep
+        ev("kernel", 200, 10, "n"),      # after "inner", inside noisy-span
+        ev("kernel", 300, 10, "keep"),   # after the phases
+        ev("kernel", 500, 10, "late"),   # after every range
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = tracing.stage_device_times(str(path))
+    assert got["stages"] == {
+        "chain/z-filter": {"us": 10.0, "events": 1},
+        "inner": {"us": 10.0, "events": 1},
+        "chain/noisy-span": {"us": 10.0, "events": 1},
+        "chain/accept": {"us": 10.0, "events": 1},
+    }
+    assert got["unattributed_us"] == 10.0 and got["total_us"] == 50.0
