@@ -56,6 +56,19 @@ load-4 bucket table, the table uploaded and read back byte for byte,
 payloads held against the native host path (`scale.bounded_run`), and
 the sketch kernel timed on the sketch's own 8 x 2^21 contig batch; the
 phase checks the disk and memory first and removes its ~6 GB of files.
+Phase 14 holds on the card what the JAX package's behaviour tests pin,
+each case with the sketch kernel's count set to 0 just before it and every
+launch matched to a device batch: 14a, Make-style reuse on phase 2's
+draft, written again (a second `scaffold` launches nothing and leaves every mtime, touching the
+reads maps them again to the same DOT, a contig sketch killed after its
+first batch leaves neither its TSV nor a .tmp); 14b, round 2 from the
+lifted mapping (`pipeline.map_reads` made to raise) against a fresh remap,
+the DOT, path and FASTA equal; 14c, the genome of known truth of
+``tests/test_synthetic_truth.py`` reassembled in order with its gaps, and
+gap-filled, card == CPU; 14d, degenerate inputs (empty reads, reads that
+map nowhere, sub-k contigs, all-N contig and read, reads of k, k+1 and
+k+w-2, gap_fill with nothing to fill), card == CPU, launches equal to the
+CPU run's batches.
 Every phase prints a line; any failure exits non-zero before the last
 line, which is the JSON result. Without a CUDA device it exits 1.
 """
@@ -81,12 +94,15 @@ from ntlink_tpu_torch import (
     bench, cli, graft_entry, kernel_bench, mapping_step, native, pipeline,
     scale, tracing,
 )
+from ntlink_tpu_torch import sketch as sketch_mod
+from ntlink_tpu_torch.liftover import liftover_mappings
 from ntlink_tpu_torch.device_map import batch_rows
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
 from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
-from ntlink_tpu_torch.seqio.fastx import stream_codes
+from ntlink_tpu_torch.seqio import stream_fastx
+from ntlink_tpu_torch.seqio.fastx import stream_codes, write_fasta
 from ntlink_tpu_torch.sketch import TorchHybridSketcher, TorchSketcher
 
 SEED = 20261016
@@ -161,6 +177,17 @@ RANK_TIMEOUT_S = 600
 # path's workers)
 SCALE_CONTIGS, SCALE_CONTIG_LEN = 750, 4_000_000
 SCALE_MEM_BYTES = 20 << 30
+# phase 14: the JAX package's behaviour checks on the card. 14a and 14b run
+# on a fresh copy of phase 2's draft; 14c on the genome of
+# tests/test_synthetic_truth.py; 14d on hand-made degenerate inputs
+SCAF_ARGV = ["scaffold", "target=target.fa", "reads=reads.fa", "k=32",
+             "w=100", "z=1000"]
+ROUND2_ARGV = ["scaffold", "target=round1.fa", "reads=reads.fa", "k=32",
+               "w=100", "z=1000"]
+ROUND2_PREFIX = "round1.fa.k32.w100.z1000"
+# the contig sketch of the killed stream dies at its second batch
+KILL_AFTER_STEPS = 1
+TRUTH_BASES = np.array(list("ACGT"))
 
 
 def log(*parts) -> None:
@@ -1312,6 +1339,352 @@ def phase_new_paths(dev) -> dict:
     return by_path
 
 
+class SketchKilled(RuntimeError):
+    """The failure phase 14a injects into the contig sketch's step."""
+
+
+def batches_of(sketcher, mapper) -> int:
+    """Device batches of the latest flow's contig sketch and read mapping
+    (None for a stage that did not run): one sketch kernel launch each."""
+    return sum(sum(obj.batches_by_pad.values())
+               for obj in (sketcher, mapper) if obj is not None)
+
+
+def card_flow(d: str, argv, label: str):
+    """The port's CLI on the card in `d`, the sketch kernel's count set to 0
+    just before and read just after. Returns (launches, wall seconds)."""
+    pipeline.last_sketcher = pipeline.last_mapper = None
+    sketch_cuda.launches = 0
+    t0 = time.perf_counter()
+    rc = run_in(d, lambda: cli.main(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = sketch_cuda.launches
+    if rc != 0:
+        fail(f"{label}: the port's {argv[0]} exited {rc}")
+    batches = batches_of(pipeline.last_sketcher, pipeline.last_mapper)
+    if launches != batches:
+        fail(f"{label}: {launches} sketch kernel launches for {batches} "
+             f"device batches")
+    return launches, secs
+
+
+def cpu_flow(d: str, argv):
+    """The same command line's flow on the CPU (the plain version in every
+    batch). Returns (device batches, wall seconds)."""
+    targets, cfg, rounds = cli.parse(argv)
+    pipeline.last_sketcher = pipeline.last_mapper = None
+    t0 = time.perf_counter()
+    run_in(d, lambda: cli.dispatch(targets, cfg, rounds, "cpu"))
+    return (batches_of(pipeline.last_sketcher, pipeline.last_mapper),
+            time.perf_counter() - t0)
+
+
+def mtimes(d: str) -> dict:
+    """Each file's mtime, and for each symlink (the inputs, and the final
+    scaffolds' link that every run sets again) the name it points at."""
+    out = {}
+    for name in os.listdir(d):
+        path = os.path.join(d, name)
+        out[name] = (os.readlink(path) if os.path.islink(path)
+                     else os.stat(path).st_mtime_ns)
+    return out
+
+
+def phase_reuse(dev, root: str, data: str) -> dict:
+    """Phase 14a: Make-style reuse on the card (tests/test_incremental.py).
+    Returns the launches by case and the directory of its last scaffold,
+    round 1 of 14b."""
+    inputs = [os.path.join(data, f) for f in ("target.fa", "reads.fa")]
+    d = make_dir(root, "p14a", inputs)
+    dot = os.path.join(d, PREFIX + ".n1.scaffold.dot")
+    first, secs = card_flow(d, SCAF_ARGV, "phase 14a")
+    if first == 0:
+        fail("phase 14a: the first scaffold launched no sketch kernel")
+    log(f"phase 14a (first scaffold): {first} sketch kernel launches, "
+        f"{secs:.1f} s")
+    stamps = mtimes(d)
+    with open(dot, "rb") as fh:
+        first_dot = fh.read()
+    again, secs = card_flow(d, SCAF_ARGV, "phase 14a")
+    changed = sorted(n for n, t in mtimes(d).items() if stamps.get(n) != t)
+    if again != 0 or changed or len(stamps) != len(os.listdir(d)):
+        fail(f"phase 14a: the second scaffold launched {again} sketch "
+             f"kernels and changed {changed}")
+    log(f"phase 14a (second scaffold): {again} sketch kernel launches, "
+        f"{secs:.1f} s; every file's mtime and every link unchanged "
+        f"({len(stamps)} names)")
+    os.utime(os.path.join(data, "reads.fa"))
+    remap, secs = card_flow(d, SCAF_ARGV, "phase 14a")
+    mapper = pipeline.last_mapper
+    with open(dot, "rb") as fh:
+        same = fh.read() == first_dot
+    if pipeline.last_sketcher is not None or mapper is None \
+            or remap == 0 or mapper.kernel_launches != remap:
+        fail(f"phase 14a: after the reads were touched: {remap} launches, "
+             f"contig sketch {pipeline.last_sketcher}, mapper {mapper}")
+    if not same or os.stat(dot).st_mtime_ns <= stamps[os.path.basename(dot)]:
+        fail("phase 14a: the DOT after the reads were touched is not a new "
+             "file with the first run's bytes")
+    log(f"phase 14a (reads touched): {remap} sketch kernel launches, all "
+        f"read mapping ({mapper.device_reads} reads on the card; the contig "
+        f"sketch reused), {secs:.1f} s; DOT rewritten, byte-identical to the "
+        f"first ({len(first_dot)} bytes)")
+    # a contig sketch that dies on the card after its first batch
+    kd = make_dir(root, "p14a_killed", inputs[:1])
+    real_step, calls = sketch_mod.sketch_step, [0]
+
+    def dying_step(*args, **kwargs):
+        calls[0] += 1
+        if calls[0] > KILL_AFTER_STEPS:
+            raise SketchKilled(f"sketch step {calls[0]} killed")
+        return real_step(*args, **kwargs)
+
+    cfg = cli.parse(SCAF_ARGV)[1]
+    sketch_mod.sketch_step = dying_step
+    sketch_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        run_in(kd, lambda: pipeline.ensure_contig_sketch_tsv(
+            cfg, cfg.k, cfg.w, device=dev))
+        killed = False
+    except SketchKilled:
+        killed = True
+    finally:
+        sketch_mod.sketch_step = real_step
+    torch.cuda.synchronize()
+    killed_launches = sketch_cuda.launches
+    left = sorted(set(os.listdir(kd)) - {"target.fa"})
+    if not killed or killed_launches != KILL_AFTER_STEPS or left:
+        fail(f"phase 14a: killed sketch: raised {killed}, "
+             f"{killed_launches} launches, left {left}")
+    log(f"phase 14a (sketch killed at step {KILL_AFTER_STEPS + 1}): "
+        f"{killed_launches} sketch kernel launch before it, "
+        f"{time.perf_counter() - t0:.1f} s; neither the TSV nor a .tmp left")
+    return {"14a first scaffold": first, "14a reads touched": remap,
+            "14a killed sketch": killed_launches}, d
+
+
+def phase_lifted(root: str, round1: str, reads: str) -> dict:
+    """Phase 14b: round 2 on the card from the lifted mapping (with
+    `pipeline.map_reads` made to raise) and from a fresh remap
+    (tests/test_rounds_neutrality.py). Round 1 is 14a's last scaffold."""
+    final = os.path.realpath(os.path.join(round1, PREFIX
+                                          + ".ntLink.scaffolds.fa"))
+    runs = {}
+    for name in ("lifted", "fresh"):
+        d = make_dir(root, f"p14b_{name}", [reads])
+        shutil.copy(final, os.path.join(d, "round1.fa"))
+        shutil.copy(os.path.join(round1, PREFIX + ".trimmed_scafs.agp"),
+                    os.path.join(d, "round1.fa.agp"))
+        shutil.copy(os.path.join(round1, PREFIX + ".verbose_mapping.tsv"),
+                    os.path.join(d, "round1.fa.verbose_mapping.tsv"))
+        real_map = pipeline.map_reads
+        if name == "lifted":
+            liftover_mappings(
+                os.path.join(d, "round1.fa.verbose_mapping.tsv"),
+                os.path.join(d, "round1.fa.agp"),
+                os.path.join(d, ROUND2_PREFIX + ".verbose_mapping.tsv"), 32)
+
+            def boom(*args, **kwargs):
+                raise AssertionError("the lifted checkpoint was not used")
+
+            pipeline.map_reads = boom
+        try:
+            launches, secs = card_flow(d, ROUND2_ARGV, f"phase 14b ({name})")
+        finally:
+            pipeline.map_reads = real_map
+        sk, mp = pipeline.last_sketcher, pipeline.last_mapper
+        by_stage = (sk.kernel_launches if sk else 0,
+                    mp.kernel_launches if mp else 0)
+        runs[name] = (d, launches, by_stage)
+        log(f"phase 14b ({name} round 2): {launches} sketch kernel launches "
+            f"({by_stage[0]} contig sketch, {by_stage[1]} read mapping), "
+            f"{secs:.1f} s")
+    if runs["lifted"][2][1] != 0 or runs["lifted"][1] != runs["lifted"][2][0]:
+        fail(f"phase 14b: the lifted round launched {runs['lifted'][1:]}")
+    if min(runs["fresh"][2]) == 0:
+        fail(f"phase 14b: the fresh round launched {runs['fresh'][1:]}")
+    a, b = runs["lifted"][0], runs["fresh"][0]
+    for name in (ROUND2_PREFIX + ".n1.scaffold.dot",
+                 ROUND2_PREFIX + ".stitch.path",
+                 ROUND2_PREFIX + ".ntLink.scaffolds.fa"):
+        pa = os.path.realpath(os.path.join(a, name))
+        pb = os.path.realpath(os.path.join(b, name))
+        if not filecmp.cmp(pa, pb, shallow=False):
+            fail(f"phase 14b: {name} of the lifted round differs from the "
+                 f"fresh remap's")
+        log(f"phase 14b: {name}: lifted == fresh remap "
+            f"({os.path.getsize(pa)} bytes)")
+    return {"14b lifted round 2": runs["lifted"][1],
+            "14b fresh round 2": runs["fresh"][1]}
+
+
+def truth_genome(rng, n_contigs=6, contig_len=400_000, gap=500):
+    """tests/test_synthetic_truth.py's `make_genome`: a random genome cut
+    into contigs with known gaps. Returns (genome, [(name, seq)])."""
+    pieces, contigs = [], []
+    for i in range(n_contigs):
+        seq = "".join(TRUTH_BASES[rng.integers(0, 4, contig_len)])
+        contigs.append((f"contig{i}", seq))
+        pieces.append(seq)
+        if i + 1 < n_contigs:
+            pieces.append("".join(TRUTH_BASES[rng.integers(0, 4, gap)]))
+    return "".join(pieces), contigs
+
+
+def truth_reads(rng, genome, n_reads=800, read_len=12_000, err=0.03):
+    """tests/test_synthetic_truth.py's `sample_reads`: substitutions at
+    `err`, half reverse-complemented."""
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for r in range(n_reads):
+        start = int(rng.integers(0, len(genome) - read_len))
+        arr = np.frombuffer(
+            genome[start : start + read_len].encode(), dtype=np.uint8
+        ).copy()
+        n_err = int(read_len * err)
+        pos = rng.integers(0, read_len, n_err)
+        arr[pos] = TRUTH_BASES[rng.integers(0, 4, n_err)].astype(
+            "S1").view(np.uint8)
+        seq = arr.tobytes().decode()
+        if rng.random() < 0.5:
+            seq = seq.translate(comp)[::-1]
+        reads.append((f"r{r}", seq))
+    return reads
+
+
+def card_and_cpu(root: str, name: str, files: dict, argv, label: str,
+                 must=()):
+    """`files` ({name: records}) written into two directories, then the
+    flow of `argv` on the card in one and on the CPU in the other; the
+    directories must be equal. Returns (card directory, launches)."""
+    dirs = []
+    for side in ("card", "cpu"):
+        d = os.path.join(root, f"{name}_{side}")
+        os.makedirs(d)
+        for fname, records in files.items():
+            with open(os.path.join(d, fname), "w") as fh:
+                write_fasta(fh, records)
+        dirs.append(d)
+    launches, card_s = card_flow(dirs[0], argv, label)
+    batches, cpu_s = cpu_flow(dirs[1], argv)
+    if launches != batches or (batches and not launches):
+        fail(f"{label}: {launches} sketch kernel launches on the card, "
+             f"{batches} device batches on the CPU")
+    same_tree(label, dirs[0], dirs[1], must)
+    log(f"{label}: {launches} sketch kernel launches ({batches} batches on "
+        f"the CPU), card {card_s:.1f} s, CPU {cpu_s:.1f} s")
+    return dirs[0], launches
+
+
+def phase_truth(root: str) -> dict:
+    """Phase 14c: the genome of known truth (tests/test_synthetic_truth.py)
+    on the card and on the CPU."""
+    rng = np.random.default_rng(11)
+    genome, contigs = truth_genome(rng)
+    files = {"target.fa": contigs, "reads.fa": truth_reads(rng, genome)}
+    final = PREFIX + ".ntLink.scaffolds.fa"
+    d, launches = card_and_cpu(root, "p14c", files, SCAF_ARGV,
+                               "phase 14c (truth)",
+                               [final, PREFIX + ".stitch.path"])
+    with open(os.path.join(d, PREFIX + ".stitch.path")) as fh:
+        paths = [line.rstrip("\n").split("\t")[1] for line in fh]
+    tokens = paths[0].split(" ") if len(paths) == 1 else []
+    names = [t[:-1] for t in tokens[::2]]
+    oris = [t[-1] for t in tokens[::2]]
+    gaps = [int(t[:-1]) for t in tokens[1::2]]
+    want = [name for name, _ in contigs]
+    if names != want:
+        names = names[::-1]
+        oris = ["-" if o == "+" else "+" for o in oris[::-1]]
+    if names != want or len(set(oris)) != 1 \
+            or not all(200 <= g <= 800 for g in gaps) \
+            or len(list(stream_fastx(os.path.join(d, final)))) != 1:
+        fail(f"phase 14c: paths {paths} are not the truth (6 contigs in "
+             f"order, one orientation, gaps of 500 within 200-800)")
+    log(f"phase 14c: one path in truth order, gap estimates {gaps} "
+        f"(truth 500)")
+    rng = np.random.default_rng(12)
+    genome, contigs = truth_genome(rng, n_contigs=3, contig_len=300_000)
+    files = {"target.fa": contigs,
+             "reads.fa": truth_reads(rng, genome, n_reads=500)}
+    gap_final = PREFIX + ".ntLink.scaffolds.gap_fill.fa"
+    d, gf_launches = card_and_cpu(root, "p14c_gap_fill", files,
+                                  ["scaffold", "gap_fill"] + SCAF_ARGV[1:],
+                                  "phase 14c (gap fill)", [gap_final])
+    big = max((r.seq for r in stream_fastx(os.path.join(d, gap_final))),
+              key=len)
+    n_share = big.upper().count("N") / len(big)
+    if abs(len(big) - len(genome)) >= 0.02 * len(genome) or n_share >= 0.01:
+        fail(f"phase 14c: gap-filled scaffold of {len(big)} b ({n_share:.4%} "
+             f"N) for a genome of {len(genome)} b")
+    log(f"phase 14c (gap fill): largest scaffold {len(big)} b for a genome "
+        f"of {len(genome)} b, {n_share:.4%} N")
+    return {"14c truth": launches, "14c gap fill": gf_launches}
+
+
+def phase_degenerate(root: str) -> dict:
+    """Phase 14d: degenerate inputs (tests/test_edge_cases.py), each on the
+    card and on the CPU."""
+    rng = np.random.default_rng(SEED + 14)
+
+    def seq(n):
+        return "".join(TRUTH_BASES[rng.integers(0, 4, n)])
+
+    c1, c2 = seq(3000), seq(2500)
+    k, w = 32, 100
+    gap_argv = ["scaffold", "gap_fill"] + SCAF_ARGV[1:]
+    cases = [
+        ("empty reads", {"target.fa": [("c1", c1)], "reads.fa": []},
+         SCAF_ARGV),
+        ("reads that map nowhere",
+         {"target.fa": [("c1", c1), ("c2", c2)],
+          "reads.fa": [("r1", seq(2000))]}, SCAF_ARGV),
+        ("sub-k contigs",
+         {"target.fa": [("tiny", "ACGT"), ("c1", c1), ("short", c2[:k - 1])],
+          "reads.fa": [("r1", c1[200:1700]), ("r2", seq(1500))]}, SCAF_ARGV),
+        ("all-N contig and read",
+         {"target.fa": [("c1", c1), ("nn", "N" * 2000)],
+          "reads.fa": [("r1", c1[100:2100]), ("rn", "N" * 1500)]},
+         SCAF_ARGV),
+        ("reads of k, k+1, k+w-2",
+         {"target.fa": [("c1", c1)],
+          "reads.fa": [(f"r{n}", c1[500 : 500 + n])
+                       for n in (k, k + 1, k + w - 2)]}, SCAF_ARGV),
+        ("gap_fill with nothing to fill",
+         {"target.fa": [("c1", c1)], "reads.fa": [("r1", seq(1500))]},
+         gap_argv),
+    ]
+    by_case = {}
+    for i, (name, files, argv) in enumerate(cases):
+        _, launches = card_and_cpu(root, f"p14d_{i}", files, argv,
+                                   f"phase 14d ({name})")
+        by_case[f"14d {name}"] = launches
+    return by_case
+
+
+def phase_behaviours(dev, root: str) -> dict:
+    """Phase 14: the JAX package's behaviour checks on the card, each case
+    with the sketch kernel's count set to 0 just before it."""
+    t0 = time.perf_counter()
+    data = os.path.join(root, "p14_data")
+    os.makedirs(data)
+    write_dataset(data, label="phase 14")
+    by_path, round1 = phase_reuse(dev, root, data)
+    by_path.update(phase_lifted(root, round1, os.path.join(data,
+                                                           "reads.fa")))
+    by_path.update(phase_truth(root))
+    by_path.update(phase_degenerate(root))
+    # the flows ran with t=4: the layout sweep's pools started the resource
+    # tracker
+    left = stop_children()
+    if left:
+        fail(f"phase 14: processes left running: {left}")
+    log(f"phase 14: {time.perf_counter() - t0:.1f} s for the phase")
+    return by_path
+
+
 def phase_probe(dev) -> dict:
     """Phase 1b: the integer peak probe against its plain version on the
     card, bit for bit, at the bench's (256, 1024) elements, then one
@@ -1407,11 +1780,14 @@ def run_phases() -> list:
     new_paths = phase_new_paths(dev)
     entry = phase_bench_entry(dev, smi)
     human = phase_scale(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="ntlink_smoke_") as root:
+        behaviours = phase_behaviours(dev, root)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
     counts["launches_by_path"]["6 kernel bench"] = kbench["sketch_rows"]
     counts["launches_by_path"].update(new_paths)
     counts["launches_by_path"]["11 bench entry"] = entry["sketch_rows"]
     counts["launches_by_path"]["scale"] = human.pop("launches")
+    counts["launches_by_path"].update(behaviours)
     log(f"nvidia-smi: {smi}")
     kernels = json.dumps({"kernels": [{
         "name": "sketch_rows",
