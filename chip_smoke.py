@@ -15,16 +15,22 @@ so that it finds the L2 cold). Phase 1b: the integer peak probe (the
 counterpart of bench.py's Pallas microkernel) at (256, 1024), bit for bit,
 then its rates by width. Then it drives the port's CLI on a synthetic
 draft at C. elegans scale with N gaps and two contigs past 2^21 bases
-(phase 2): 2a, the default `pair` run (contig sketch on the card,
-chaining on the card, per-anchor payload), held byte for byte against the
-same stage on the CPU, where every batch goes through the kernel's plain
-version; 2b, the lean run (verbose=False: O(runs) payload), held against
-2a; 2c, the host-chained path (sensitive=True) on 2,000 reads, card vs
-CPU. Phase 3: backend=hybrid t=4 (card and host C path at once), verbose
-and lean, held against 2a and 2b. Phase 4: repeats=True (hash planes) on
-2,000 reads, card vs CPU. Phase 5: `run_rounds_gaps rounds=2` on a smaller
-draft cut the same way, card vs CPU, every file of the run; round 2 must
-launch no sketch kernel. Phase 6: the kernel bench
+(phase 2): 2a, the default `pair` run (t=4, so the contig sketch shares
+its stream between the card and four C threads, `TorchHybridSketcher`,
+and fails unless the card took at least one contig and launched one kernel
+for each batch it dispatched; chaining on the card, per-anchor payload),
+held byte for byte against the same stage on the native host path
+(backend=numpy t=8: C sketcher, C mapping, C chaining, no torch; phase 5
+keeps a whole flow on the CPU through the kernel's plain version); 2b, the
+lean run (verbose=False: O(runs) payload) with the contig sketch pinned to
+the card alone (backend=jax), which must chunk the long contigs and run an
+N batch, held against 2a, the contig TSV too; 2c, the host-chained path
+(sensitive=True) on 2,000 reads, card vs CPU. Phase 3: backend=hybrid
+t=4 (card and host C path at once), verbose and lean, held against 2a and
+2b. Phase 4: repeats=True (hash planes) on 2,000 reads, card vs CPU.
+Phase 5: `run_rounds_gaps rounds=2` on a smaller draft cut the same way,
+card vs CPU, every file of the run; round 2 must launch no sketch kernel.
+Phase 6: the kernel bench
 (``python -m ntlink_tpu_torch.kernel_bench``), its JSON on a line of its
 own. Phases 7-10 run on the phase-5-sized draft with its reads in two
 files, each held byte for byte against a one-process, one-device card run.
@@ -47,21 +53,29 @@ device, hybrid and strong host legs' tallies are equal, the mapper's
 `wire_stats` count the bytes of the batches that ran, every phase of the
 stream's timing split is there and no thread's phases sum past the
 stream's wall; its result line and the split are printed with the card's
-name and power limit. Phase 13, human scale: the JAX package's human
-preset target (750 contigs of 4 Mb, 3.0 Gbase, from the generator of
-``scripts/stress_scale_torch.py``) sketched on the card through the `pair`
-stage's contig path, its ~59 M-minimizer index parsed and built into the
-load-4 bucket table, the table uploaded and read back byte for byte,
-20,000 of its reads mapped with chaining on the card and the first 2,000
-payloads held against the native host path (`scale.bounded_run`), and
-the sketch kernel timed on the sketch's own 8 x 2^21 contig batch; the
-phase checks the disk and memory first and removes its ~6 GB of files.
+name and power limit; each leg runs fewer times than the bench's own (2
+device runs, 1 interleaved hybrid and host run). Phase 13, human scale:
+the JAX package's human preset target (750 contigs of 4 Mb, 3.0 Gbase,
+from the generator of ``scripts/stress_scale_torch.py``) sketched through
+the `pair` stage's contig path three times, at the default knobs (the
+card and four C threads), pinned to the card alone (backend=jax), and at
+the default knobs again, each with its wall seconds, the card's share of
+the contigs, its launches (one for each card batch) and the peak host RSS
+sampled over it, the three TSVs byte-identical; its ~59 M-minimizer index
+parsed and built into the load-4 bucket table, the table uploaded and read
+back byte for byte, 20,000 of its reads mapped with chaining on the card
+and the first 2,000 payloads held against the native host path
+(`scale.bounded_run`), and the sketch kernel timed on the sketch's own 8 x
+2^21 contig batch; the phase checks the disk and memory first and removes
+its ~9 GB of files.
 Phase 14 holds on the card what the JAX package's behaviour tests pin,
 each case with the sketch kernel's count set to 0 just before it and every
-launch matched to a device batch: 14a, Make-style reuse on phase 2's
-draft, written again (a second `scaffold` launches nothing and leaves every mtime, touching the
-reads maps them again to the same DOT, a contig sketch killed after its
-first batch leaves neither its TSV nor a .tmp); 14b, round 2 from the
+launch matched to a device batch: 14a, Make-style reuse on phase 5's
+draft, written again (a second `scaffold` launches nothing and leaves
+every mtime, touching the reads maps them again to the same DOT, a contig
+sketch killed on the card alone after its first batch, and one killed at
+the default knobs at the card's first batch, leave neither a TSV nor a
+.tmp); 14b, round 2 from the
 lifted mapping (`pipeline.map_reads` made to raise) against a fresh remap,
 the DOT, path and FASTA equal; 14c, the genome of known truth of
 ``tests/test_synthetic_truth.py`` reassembled in order with its gaps, and
@@ -69,11 +83,15 @@ gap-filled, card == CPU; 14d, degenerate inputs (empty reads, reads that
 map nowhere, sub-k contigs, all-N contig and read, reads of k, k+1 and
 k+w-2, gap_fill with nothing to fill), card == CPU, launches equal to the
 CPU run's batches.
-Every phase prints a line; any failure exits non-zero before the last
-line, which is the JSON result. Without a CUDA device it exits 1.
+Every phase prints its lines ("phase <name>: ...") and, as it ends, its
+wall seconds ("seconds of phase <name>: <s>"); the line before the two
+JSON lines gives the seconds of every phase. Any failure
+exits non-zero before the last line, which is the JSON result. Without a
+CUDA device it exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import filecmp
 import json
 import os
@@ -142,6 +160,8 @@ SUB_RATE, N_READ_SHARE = 0.05, 0.01
 PAIR_ARGV = ["pair", "target=target.fa", "reads=reads.fa", "k=32", "w=100",
              "z=1000", "pairs_tsv=True"]
 LEAN_ARGV = PAIR_ARGV + ["verbose=False"]
+# phase 2b: the lean run with the contig sketch on the card alone
+LEAN_CARD_ARGV = LEAN_ARGV + ["backend=jax"]
 SENS_READS = 2_000
 SENS_ARGV = ["pair", "target=target.fa", "reads=reads2k.fa", "k=32",
              "w=100", "z=1000", "pairs_tsv=True", "sensitive=True"]
@@ -169,6 +189,9 @@ STEP_RANGES = ("mapping_step/unpack", "mapping_step/sketch",
                "mapping_step/select", "mapping_step/join", "chain/accept",
                "mapping_step/compact")
 SKETCH_KERNEL = "sketch_rows_kernel"
+# phase 11: the bench's full workload, each leg run fewer times than the
+# bench's own 4 device runs and 3 interleaved hybrid and host runs
+BENCH_RUNS = {"DEVICE_RUNS": 2, "INTERLEAVED_RUNS": 1}
 RANK_TIMEOUT_S = 600
 # phase 13: the JAX package's human preset target (scripts/stress_scale.py)
 # with the bounded run's slice of reads, and the memory it asks to have
@@ -177,8 +200,14 @@ RANK_TIMEOUT_S = 600
 # path's workers)
 SCALE_CONTIGS, SCALE_CONTIG_LEN = 750, 4_000_000
 SCALE_MEM_BYTES = 20 << 30
+# (name, backend, directory of its own or None) of the three contig
+# sketches of the target, in order; None is the target's own directory,
+# whose TSV the bounded run reuses. The default knobs are auto at t=4
+SCALE_SKETCHES = (("default", None, None),
+                  ("card alone", "jax", "card_alone"),
+                  ("default again", None, "default_again"))
 # phase 14: the JAX package's behaviour checks on the card. 14a and 14b run
-# on a fresh copy of phase 2's draft; 14c on the genome of
+# on a fresh copy of phase 5's draft; 14c on the genome of
 # tests/test_synthetic_truth.py; 14d on hand-made degenerate inputs
 SCAF_ARGV = ["scaffold", "target=target.fa", "reads=reads.fa", "k=32",
              "w=100", "z=1000"]
@@ -188,6 +217,8 @@ ROUND2_PREFIX = "round1.fa.k32.w100.z1000"
 # the contig sketch of the killed stream dies at its second batch
 KILL_AFTER_STEPS = 1
 TRUTH_BASES = np.array(list("ACGT"))
+#: wall seconds of each phase of this run, by phase name
+PHASE_SECONDS = {}
 
 
 def log(*parts) -> None:
@@ -547,6 +578,50 @@ def card_pair(d: str, argv, dev, label: str):
     return mapper, sketcher, launches, secs
 
 
+def hybrid_contig_split(sketcher, n_contigs: int, label: str) -> dict:
+    """The default run's contig sketch: it must have gone through the
+    hybrid, the card must have taken at least one contig, and the card
+    path must have launched one sketch kernel per batch it dispatched.
+    Logs and returns the split."""
+    if not isinstance(sketcher, TorchHybridSketcher):
+        fail(f"{label}: the contig sketch ran on {type(sketcher).__name__}, "
+             f"not the hybrid of the default knobs")
+    n = sketcher.device_seqs + sketcher.host_seqs
+    batches = sum(sketcher.batches_by_pad.values())
+    if n != n_contigs or sketcher.device_seqs < 1:
+        fail(f"{label}: the card took {sketcher.device_seqs} and the host "
+             f"{sketcher.host_seqs} of {n_contigs} contigs")
+    if sketcher.kernel_launches != batches:
+        fail(f"{label}: the contig sketch launched "
+             f"{sketcher.kernel_launches} kernels for {batches} card batches")
+    split = {"device_seqs": sketcher.device_seqs,
+             "host_seqs": sketcher.host_seqs,
+             "device_bases": sketcher.device_bases,
+             "host_bases": sketcher.host_bases,
+             "device_share": sketcher.device_seqs / n,
+             "seconds": sketcher.stream_seconds,
+             "card_path_seconds": sketcher.device_backend.stream_seconds,
+             "launches": sketcher.kernel_launches}
+    log(f"{label}: contig sketch (card + {sketcher.threads} C threads): "
+        f"{sketcher.stream_seconds:.3f} s; card {sketcher.device_seqs} "
+        f"contigs ({100 * split['device_share']:.1f}%), "
+        f"{sketcher.device_bases} bases, in {batches} batches "
+        f"({sketcher.kernel_launches} launches; the card path's streams "
+        f"{split['card_path_seconds']:.3f} s); host {sketcher.host_seqs} "
+        f"contigs, {sketcher.host_bases} bases")
+    return split
+
+
+def host_pair(d: str, argv, label: str) -> None:
+    """The same stage on the native host path (backend=numpy t=8): the C
+    sketcher, C mapping and C chaining, no device and no torch kernel."""
+    t0 = time.perf_counter()
+    cfg = cli.parse(argv + ["backend=numpy", "t=8"])[1]
+    run_in(d, lambda: pipeline.pair_stage(cfg))
+    log(f"{label}: the same stage on the native host path (backend=numpy "
+        f"t=8): {time.perf_counter() - t0:.1f} s")
+
+
 def cpu_pair(d: str, argv, label: str) -> None:
     t0 = time.perf_counter()
     run_in(d, lambda: pipeline.pair_stage(cli.parse(argv)[1],
@@ -574,12 +649,15 @@ def phase_slice(dev) -> dict:
         inputs = [os.path.join(data, f) for f in ("target.fa", "reads.fa")]
         n_reads = N_READS + N_SUBK
 
-        # 2a, the main path: the default run (verbose, prechained) on the
-        # card, then the same stage on the CPU (plain version in every batch)
+        # 2a, the main path: the default run (verbose, prechained; t=4, so
+        # the contig sketch shares its stream between the card and four C
+        # threads) on the card, then the same stage on the native host path
+        # (backend=numpy), which shares no code with the card's
         card = make_dir(root, "card", inputs)
         torch.cuda.reset_peak_memory_stats(dev)
-        mapper, sketcher, launches, _ = card_pair(card, PAIR_ARGV, dev,
-                                                  "phase 2a")
+        with clock("2a"):
+            mapper, sketcher, launches, _ = card_pair(card, PAIR_ARGV, dev,
+                                                      "phase 2a")
         peak = torch.cuda.max_memory_allocated(dev)
         log(f"phase 2a: peak device memory {peak / 2**20:.1f} MiB")
         if mapper.device_reads + mapper.host_fallbacks != n_reads:
@@ -587,11 +665,12 @@ def phase_slice(dev) -> dict:
                  f"reads, expected {n_reads}")
         if not mapper.prechained or mapper.runs_only:
             fail("2a: the default run is not prechained per-anchor")
-        if sketcher is None or sketcher.chunked != N_LONG:
-            fail("2a: the contig sketch did not chunk the long contigs")
-        for what, obj in (("contig", sketcher), ("read", mapper)):
-            if not any(has_n for _, has_n in obj.batches_by_pad):
-                fail(f"2a: no {what} N batch ran on the card")
+        split = hybrid_contig_split(sketcher, N_CONTIGS + N_LONG, "phase 2a")
+        if launches != batches_of(sketcher, mapper):
+            fail(f"2a: {launches} sketch kernel launches for "
+                 f"{batches_of(sketcher, mapper)} device batches")
+        if not any(has_n for _, has_n in mapper.batches_by_pad):
+            fail("2a: no read N batch ran on the card")
         # every input is at least k long but the sub-k reads, so those are
         # the only exact-host rows either stream may have
         if sketcher.host_fallbacks != 0 or mapper.host_fallbacks != N_SUBK:
@@ -599,9 +678,10 @@ def phase_slice(dev) -> dict:
                  f"rows, {mapper.host_fallbacks} reads (sub-k: {N_SUBK})")
         if max(L for L, _ in mapper.batches_by_pad) <= 16384:
             fail("2a: no read batch in the pad > 16384 domain")
-        cpu = make_dir(root, "cpu", inputs)
-        cpu_pair(cpu, PAIR_ARGV, "phase 2a")
-        same_bytes("phase 2a", card, cpu,
+        host = make_dir(root, "host", inputs)
+        with clock("2a reference"):
+            host_pair(host, PAIR_ARGV, "phase 2a")
+        same_bytes("phase 2a", card, host,
                    [PREFIX + a for a in ARTIFACTS] + [CONTIG_TSV])
         with open(os.path.join(card, PREFIX + ARTIFACTS[0])) as fh:
             edges = sum(" -> " in line for line in fh)
@@ -612,12 +692,31 @@ def phase_slice(dev) -> dict:
                    "2a read mapping": mapper.kernel_launches}
 
         # 2b: the lean run (verbose=False: runs-only payload) in a fresh
-        # directory; its artifacts must be 2a's
+        # directory, its contig sketch pinned to the card alone
+        # (backend=jax: the same read mapping as auto); its artifacts, the
+        # contig TSV too, must be 2a's
         lean = make_dir(root, "lean", inputs)
-        mapper_b, sketcher_b, _, _ = card_pair(lean, LEAN_ARGV, dev,
-                                               "phase 2b")
+        with clock("2b"):
+            mapper_b, sketcher_b, _, _ = card_pair(lean, LEAN_CARD_ARGV, dev,
+                                                   "phase 2b")
         if not mapper_b.runs_only:
             fail("2b: the lean run did not ship runs-only payloads")
+        if not isinstance(sketcher_b, TorchSketcher) \
+                or sketcher_b.chunked != N_LONG:
+            fail("2b: the card-alone contig sketch did not chunk the long "
+                 "contigs")
+        if not any(has_n for _, has_n in sketcher_b.batches_by_pad):
+            fail("2b: no contig N batch ran on the card")
+        if sketcher_b.host_fallbacks != 0 or sketcher_b.kernel_launches \
+                != sum(sketcher_b.batches_by_pad.values()):
+            fail(f"2b: {sketcher_b.host_fallbacks} host-fallback contig "
+                 f"rows, {sketcher_b.kernel_launches} launches for "
+                 f"{sketcher_b.batches_by_pad}")
+        log(f"phase 2b: contig sketch of {N_CONTIGS + N_LONG} contigs: card "
+            f"alone {sketcher_b.stream_seconds:.3f} s; 2a's default "
+            f"(card + {sketcher.threads} C threads) "
+            f"{sketcher.stream_seconds:.3f} s, the card taking "
+            f"{100 * split['device_share']:.1f}% of the contigs")
         same_bytes("phase 2b", card, lean,
                    [PREFIX + a for a in ARTIFACTS[:2]] + [CONTIG_TSV])
         by_path["2b contig sketch"] = sketcher_b.kernel_launches
@@ -628,11 +727,14 @@ def phase_slice(dev) -> dict:
         links = [inputs[0], os.path.join(data, "reads2k.fa"),
                  os.path.join(card, CONTIG_TSV)]
         sens_card = make_dir(root, "sens_card", links)
-        mapper_c, _, _, _ = card_pair(sens_card, SENS_ARGV, dev, "phase 2c")
+        with clock("2c"):
+            mapper_c, _, _, _ = card_pair(sens_card, SENS_ARGV, dev,
+                                          "phase 2c")
         if mapper_c.prechained:
             fail("2c: sensitive=True must chain on the host")
         sens_cpu = make_dir(root, "sens_cpu", links)
-        cpu_pair(sens_cpu, SENS_ARGV, "phase 2c")
+        with clock("2c reference"):
+            cpu_pair(sens_cpu, SENS_ARGV, "phase 2c")
         same_bytes("phase 2c", sens_card, sens_cpu,
                    [PREFIX + a for a in ARTIFACTS])
         by_path["2c read mapping"] = mapper_c.kernel_launches
@@ -648,7 +750,9 @@ def phase_slice(dev) -> dict:
         ):
             label = f"phase 3 ({name})"
             d = make_dir(root, name, inputs)
-            mapper_h, sketcher_h, _, secs = card_pair(d, argv, dev, label)
+            with clock(f"3 {name}"):
+                mapper_h, sketcher_h, _, secs = card_pair(d, argv, dev,
+                                                          label)
             split = pipeline.last_hybrid
             if split is None or not isinstance(sketcher_h,
                                                TorchHybridSketcher):
@@ -678,12 +782,15 @@ def phase_slice(dev) -> dict:
         # 4: repeats=True (hash planes, the repeat filter before host
         # chaining) on the first 2,000 reads, card vs CPU, on 2a's sketch
         rep_card = make_dir(root, "rep_card", links)
-        mapper_r, _, _, _ = card_pair(rep_card, REPEATS_ARGV, dev, "phase 4")
+        with clock("4"):
+            mapper_r, _, _, _ = card_pair(rep_card, REPEATS_ARGV, dev,
+                                          "phase 4")
         if not mapper_r.with_hashes or mapper_r.prechained:
             fail("4: repeats=True must ship hash planes and chain on the "
                  "host")
         rep_cpu = make_dir(root, "rep_cpu", links)
-        cpu_pair(rep_cpu, REPEATS_ARGV, "phase 4")
+        with clock("4 reference"):
+            cpu_pair(rep_cpu, REPEATS_ARGV, "phase 4")
         same_bytes("phase 4", rep_card, rep_cpu,
                    [PREFIX + a for a in ARTIFACTS])
         by_path["4 repeats"] = mapper_r.kernel_launches
@@ -1113,6 +1220,9 @@ def phase_bench_entry(dev, smi: str) -> dict:
     children = child_processes()
     had = os.environ.get("NTLINK_TIMING")
     os.environ["NTLINK_TIMING"] = "1"
+    runs = {name: getattr(bench, name) for name in BENCH_RUNS}
+    for name, n in BENCH_RUNS.items():
+        setattr(bench, name, n)
     sketch_cuda.launches = 0
     alu_peak_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1122,6 +1232,8 @@ def phase_bench_entry(dev, smi: str) -> dict:
         line = bench.result_line(
             fields, bench.weak_host_rate(workload, bench.N_READS))
     finally:
+        for name, n in runs.items():
+            setattr(bench, name, n)
         if had is None:
             del os.environ["NTLINK_TIMING"]
         else:
@@ -1228,43 +1340,100 @@ def contig_batch(target: str, k: int, w: int):
 
 
 def phase_scale(dev, smi: str) -> dict:
-    """Phase 13: a human-size contig index resident on the card, through
-    `scale.bounded_run`, with the sketch kernel's count set to 0 just
-    before it and read just after."""
+    """Phase 13: a human-size contig index resident on the card. The target
+    is sketched three times (SCALE_SKETCHES: at the default knobs, auto at
+    t=4, the card and four C threads; pinned to the card alone,
+    backend=jax; at the default knobs again), each with the sketch
+    kernel's count set to 0 just before it and read just after, and the
+    TSVs must be byte-identical; then `scale.bounded_run` builds the index
+    from the first TSV, with the count set to 0 again."""
     n_reads = scale.BOUNDED_READS
-    need = scale.stress_bytes(SCALE_CONTIGS, SCALE_CONTIG_LEN, n_reads)
+    need = scale.stress_bytes(SCALE_CONTIGS, SCALE_CONTIG_LEN, n_reads) \
+        + (len(SCALE_SKETCHES) - 1) * scale.sketch_tsv_bytes(
+            SCALE_CONTIGS, SCALE_CONTIG_LEN)
     base = scale_dir(need + (1 << 30))
     t_phase = time.perf_counter()
     with tempfile.TemporaryDirectory(prefix="ntlink_scale_", dir=base) as d:
         t0 = time.perf_counter()
-        scale.write_stress_dataset(d, SCALE_CONTIGS, SCALE_CONTIG_LEN,
-                                   n_reads)
+        with clock("13 write"):
+            scale.write_stress_dataset(d, SCALE_CONTIGS, SCALE_CONTIG_LEN,
+                                       n_reads)
         log(f"phase 13: {SCALE_CONTIGS} contigs x {SCALE_CONTIG_LEN} b and "
             f"{n_reads} reads of {scale.READ_LEN} b written in "
             f"{time.perf_counter() - t0:.1f} s (the generator of "
             f"scripts/stress_scale_torch.py)")
+        # the contig sketch at the default knobs, on the card alone, and at
+        # the default knobs again, each through a link to the target in a
+        # directory of its own (the TSV is written beside the target); the
+        # bounded run then reuses the first one's TSV, beside the target
+        sketches = {}
+        lengths = pipeline.read_scaffold_lengths(os.path.join(d, "target.fa"))
+        for name, backend, sub in SCALE_SKETCHES:
+            target = os.path.join(d, "target.fa")
+            if sub:
+                os.makedirs(os.path.join(d, sub))
+                os.symlink(target, os.path.join(d, sub, "target.fa"))
+                target = os.path.join(d, sub, "target.fa")
+            sketch_cuda.launches = 0
+            with clock(f"13 sketch, {name}"):
+                tsv, r = scale.sketch_target(
+                    target, backend, device=dev, lengths=lengths,
+                    log=lambda *a: log("phase 13:", *a))
+            kind = "TorchSketcher" if backend == "jax" \
+                else "TorchHybridSketcher"
+            # every contig the card took is chunked (a contig that a stall
+            # rescue ran on both paths counts in `chunked` and not in
+            # `device_seqs`)
+            if r["sketcher"] != kind or r["device_seqs"] < 1 \
+                    or r["device_seqs"] + r["host_seqs"] != SCALE_CONTIGS \
+                    or r["chunked"] < r["device_seqs"] \
+                    or (kind == "TorchSketcher"
+                        and r["chunked"] != SCALE_CONTIGS) \
+                    or r["host_fallbacks"] != 0 \
+                    or not (r["launches"] == r["device_batches"]
+                            == sketch_cuda.launches > 0):
+                fail(f"phase 13: the contig sketch, {name}: {r['sketcher']}, "
+                     f"card {r['device_seqs']} and host {r['host_seqs']} "
+                     f"contigs, {r['chunked']} chunked, "
+                     f"{r['host_fallbacks']} host-fallback rows, "
+                     f"{sketch_cuda.launches} launches for "
+                     f"{r['device_batches']} batches")
+            sketches[name] = (tsv, r)
+        first_tsv = sketches[SCALE_SKETCHES[0][0]][0]
+        for name, (tsv, _) in sketches.items():
+            if not filecmp.cmp(tsv, first_tsv, shallow=False):
+                fail(f"phase 13: the TSV of the contig sketch, {name}, "
+                     f"differs from the default's")
+        for name, (_, r) in sketches.items():
+            log(f"phase 13: {smi}: contig sketch, {name}: "
+                f"{r['seconds']:.1f} s with the TSV, card "
+                f"{r['device_seqs']} of {SCALE_CONTIGS} contigs "
+                f"({100 * r['device_share']:.1f}%), {r['launches']} "
+                f"launches, peak host RSS {r['peak_rss_gib']:.2f} GiB "
+                f"(sampled; {r['rss_before_gib']:.2f} GiB before)")
+        log(f"phase 13: the {len(sketches)} TSVs byte-identical "
+            f"({os.path.getsize(first_tsv)} bytes)")
         sketch_cuda.launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         try:
-            out = scale.bounded_run(d, n_reads, device=dev,
-                                    check_reads=scale.CHECK_READS,
-                                    log=lambda *a: log("phase 13:", *a))
+            with clock("13 bounded run"):
+                out = scale.bounded_run(d, n_reads, device=dev,
+                                        check_reads=scale.CHECK_READS,
+                                        log=lambda *a: log("phase 13:", *a))
         except scale.ScaleCheckError as exc:
             fail(f"phase 13: {exc}")
         launches = sketch_cuda.launches
-        sk, table, mp = out["sketch"], out["table"], out["mapping"]
+        table, mp = out["table"], out["mapping"]
         n_min = out["parse"]["minimizers"]
         if n_min <= mapping_step.SMALL_TABLE_ENTRIES \
                 or table["regime"] != "load-4":
             fail(f"phase 13: {n_min} minimizers, table in the "
                  f"{table['regime']} regime")
-        if sk["chunked"] != SCALE_CONTIGS or sk["host_fallbacks"] != 0:
-            fail(f"phase 13: {sk['chunked']} chunked contigs, "
-                 f"{sk['host_fallbacks']} host-fallback rows")
-        if min(sk["launches"], mp["launches"]) == 0 \
-                or sk["launches"] + mp["launches"] != launches:
-            fail(f"phase 13: launches {launches}: contig sketch "
-                 f"{sk['launches']}, read mapping {mp['launches']}")
+        if "sketch" in out or mp["launches"] == 0 \
+                or mp["launches"] != launches:
+            fail(f"phase 13: the bounded run launched {launches} kernels, "
+                 f"its read mapping {mp['launches']}, and sketched the "
+                 f"target again: {'sketch' in out}")
         if out["payloads_checked"] < scale.CHECK_READS \
                 or mp["reads"] != n_reads:
             fail(f"phase 13: {mp['reads']} reads mapped, "
@@ -1278,8 +1447,7 @@ def phase_scale(dev, smi: str) -> dict:
             f"{out['payloads_checked']} payloads equal to HostMapper's; "
             f"peak device memory {mp['peak_device_mib']:.1f} MiB, peak host RSS "
             f"{mp['peak_rss_gib']:.2f} GiB; {launches} sketch kernel "
-            f"launches ({sk['launches']} contig sketch, {mp['launches']} "
-            f"read mapping), contig sketch {sk['gbase_per_s']:.3f} Gbase/s")
+            f"launches, all read mapping")
         # the kernel on the sketch's own contig batch, after the count was
         # read: the launches of the comparison and the timing do not count
         k, w = scale.K, scale.W
@@ -1302,10 +1470,14 @@ def phase_scale(dev, smi: str) -> dict:
         f"({bound_by}), share of bound {bound_ms / ms:.3f}; "
         f"{time.perf_counter() - t_phase:.1f} s for the phase, its files "
         f"removed")
-    return {"launches": launches, "scale_contig_batch_ms": ms,
+    return {"launches": {"13 read mapping": launches,
+                         **{f"13 contig sketch, {name}": r["launches"]
+                            for name, (_, r) in sketches.items()}},
+            "scale_contig_batch_ms": ms,
             "scale_contig_batch_bound_ms": bound_ms,
             "scale_contig_batch_share_of_bound": bound_ms / ms,
-            "scale_sketch_gbase_per_s": sk["gbase_per_s"]}
+            "scale_sketch_gbase_per_s": {
+                name: r["gbase_per_s"] for name, (_, r) in sketches.items()}}
 
 
 def phase_new_paths(dev) -> dict:
@@ -1331,11 +1503,16 @@ def phase_new_paths(dev) -> dict:
             f"{time.perf_counter() - t0:.1f} s")
         one_pair = make_dir(root, "one_pair", inputs)
         card_pair(one_pair, PAIR2_ARGV, dev, "phase 7 (one process, pair)")
-        by_path = phase_ranks(root, inputs, one_scaffold, one_pair, must)
-        by_path.update(phase_replicas(dev, root, data, one_pair))
-        by_path.update(phase_tracing(root, inputs, one_scaffold, must))
-        phase_numpy(root, inputs, one_pair)
-        by_path.update(phase_launchers(root, inputs, one_pair))
+        with clock("7"):
+            by_path = phase_ranks(root, inputs, one_scaffold, one_pair, must)
+        with clock("8"):
+            by_path.update(phase_replicas(dev, root, data, one_pair))
+        with clock("9"):
+            by_path.update(phase_tracing(root, inputs, one_scaffold, must))
+        with clock("10"):
+            phase_numpy(root, inputs, one_pair)
+        with clock("12"):
+            by_path.update(phase_launchers(root, inputs, one_pair))
     return by_path
 
 
@@ -1366,7 +1543,19 @@ def card_flow(d: str, argv, label: str):
     if launches != batches:
         fail(f"{label}: {launches} sketch kernel launches for {batches} "
              f"device batches")
+    log(f"{label}: {launches} launches for {batches} device batches; "
+        f"{contig_split(pipeline.last_sketcher)}")
     return launches, secs
+
+
+def contig_split(sketcher) -> str:
+    """Where the latest flow's contig sketch ran, for a log line."""
+    if sketcher is None:
+        return "no contig sketch ran"
+    if not isinstance(sketcher, TorchHybridSketcher):
+        return "contig sketch on the card alone"
+    return (f"contig sketch: card {sketcher.device_seqs}, host "
+            f"{sketcher.host_seqs} contigs")
 
 
 def cpu_flow(d: str, argv):
@@ -1430,39 +1619,48 @@ def phase_reuse(dev, root: str, data: str) -> dict:
         f"read mapping ({mapper.device_reads} reads on the card; the contig "
         f"sketch reused), {secs:.1f} s; DOT rewritten, byte-identical to the "
         f"first ({len(first_dot)} bytes)")
-    # a contig sketch that dies on the card after its first batch
-    kd = make_dir(root, "p14a_killed", inputs[:1])
-    real_step, calls = sketch_mod.sketch_step, [0]
+    # a contig sketch that dies on the card: on the card alone after its
+    # first batch, and at the default knobs (the hybrid) at the card's
+    # first batch, which the scheduler always hands the card
+    cases = (("card alone", "jax", KILL_AFTER_STEPS), ("default", "auto", 0))
+    killed_launches = {}
+    for name, backend, after in cases:
+        kd = make_dir(root, f"p14a_killed_{backend}", inputs[:1])
+        cfg = cli.parse(SCAF_ARGV + [f"backend={backend}"])[1]
+        real_step, calls = sketch_mod.sketch_step, [0]
 
-    def dying_step(*args, **kwargs):
-        calls[0] += 1
-        if calls[0] > KILL_AFTER_STEPS:
-            raise SketchKilled(f"sketch step {calls[0]} killed")
-        return real_step(*args, **kwargs)
+        def dying_step(*args, **kwargs):
+            calls[0] += 1
+            if calls[0] > after:
+                raise SketchKilled(f"sketch step {calls[0]} killed")
+            return real_step(*args, **kwargs)
 
-    cfg = cli.parse(SCAF_ARGV)[1]
-    sketch_mod.sketch_step = dying_step
-    sketch_cuda.launches = 0
-    t0 = time.perf_counter()
-    try:
-        run_in(kd, lambda: pipeline.ensure_contig_sketch_tsv(
-            cfg, cfg.k, cfg.w, device=dev))
-        killed = False
-    except SketchKilled:
-        killed = True
-    finally:
-        sketch_mod.sketch_step = real_step
-    torch.cuda.synchronize()
-    killed_launches = sketch_cuda.launches
-    left = sorted(set(os.listdir(kd)) - {"target.fa"})
-    if not killed or killed_launches != KILL_AFTER_STEPS or left:
-        fail(f"phase 14a: killed sketch: raised {killed}, "
-             f"{killed_launches} launches, left {left}")
-    log(f"phase 14a (sketch killed at step {KILL_AFTER_STEPS + 1}): "
-        f"{killed_launches} sketch kernel launch before it, "
-        f"{time.perf_counter() - t0:.1f} s; neither the TSV nor a .tmp left")
+        sketch_mod.sketch_step = dying_step
+        sketch_cuda.launches = 0
+        t0 = time.perf_counter()
+        try:
+            run_in(kd, lambda: pipeline.ensure_contig_sketch_tsv(
+                cfg, cfg.k, cfg.w, device=dev))
+            killed = False
+        except SketchKilled:
+            killed = True
+        finally:
+            sketch_mod.sketch_step = real_step
+        torch.cuda.synchronize()
+        launches = sketch_cuda.launches
+        left = sorted(set(os.listdir(kd)) - {"target.fa"})
+        kind = TorchSketcher if backend == "jax" else TorchHybridSketcher
+        if not killed or launches != after or left \
+                or type(pipeline.last_sketcher) is not kind:
+            fail(f"phase 14a: killed sketch ({name}): raised {killed}, "
+                 f"{launches} launches, left {left}")
+        log(f"phase 14a (sketch killed at step {after + 1}, {name}, "
+            f"{type(pipeline.last_sketcher).__name__}): {launches} sketch "
+            f"kernel launches before it, {time.perf_counter() - t0:.1f} s; "
+            f"neither the TSV nor a .tmp left")
+        killed_launches[f"14a killed sketch, {name}"] = launches
     return {"14a first scaffold": first, "14a reads touched": remap,
-            "14a killed sketch": killed_launches}, d
+            **killed_launches}, d
 
 
 def phase_lifted(root: str, round1: str, reads: str) -> dict:
@@ -1670,12 +1868,16 @@ def phase_behaviours(dev, root: str) -> dict:
     t0 = time.perf_counter()
     data = os.path.join(root, "p14_data")
     os.makedirs(data)
-    write_dataset(data, label="phase 14")
-    by_path, round1 = phase_reuse(dev, root, data)
-    by_path.update(phase_lifted(root, round1, os.path.join(data,
-                                                           "reads.fa")))
-    by_path.update(phase_truth(root))
-    by_path.update(phase_degenerate(root))
+    write_dataset(data, label="phase 14", **SMALL)
+    with clock("14a"):
+        by_path, round1 = phase_reuse(dev, root, data)
+    with clock("14b"):
+        by_path.update(phase_lifted(root, round1,
+                                    os.path.join(data, "reads.fa")))
+    with clock("14c"):
+        by_path.update(phase_truth(root))
+    with clock("14d"):
+        by_path.update(phase_degenerate(root))
     # the flows ran with t=4: the layout sweep's pools started the resource
     # tracker
     left = stop_children()
@@ -1767,26 +1969,52 @@ def main() -> int:
     return 0
 
 
+@contextlib.contextmanager
+def clock(name: str):
+    """Keeps the wall seconds of the block under `name` in PHASE_SECONDS
+    and logs them."""
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        PHASE_SECONDS[name] = round(time.perf_counter() - t0, 1)
+        # not "phase <name>:", the header of a phase's own lines
+        log(f"seconds of phase {name}: {PHASE_SECONDS[name]}")
+
+
 def run_phases() -> list:
-    """Every phase in order; returns the two JSON lines that end the
-    output, printed once no process of the run is left."""
+    """Every phase in order; returns the lines that end the output (the
+    seconds of every phase and the two JSON lines), printed once no
+    process of the run is left."""
+    t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    smi = phase_environment()
-    kern = phase_kernel(dev)
-    probe = phase_probe(dev)
-    counts = phase_slice(dev)
-    rounds = phase_rounds(dev)
-    kbench = phase_bench(dev)
-    new_paths = phase_new_paths(dev)
-    entry = phase_bench_entry(dev, smi)
-    human = phase_scale(dev, smi)
-    with tempfile.TemporaryDirectory(prefix="ntlink_smoke_") as root:
+    with clock("0"):
+        smi = phase_environment()
+    with clock("1"):
+        kern = phase_kernel(dev)
+    with clock("1b"):
+        probe = phase_probe(dev)
+    with clock("2-4"):
+        counts = phase_slice(dev)
+    with clock("5"):
+        rounds = phase_rounds(dev)
+    with clock("6"):
+        kbench = phase_bench(dev)
+    with clock("7-10, 12"):
+        new_paths = phase_new_paths(dev)
+    with clock("11"):
+        entry = phase_bench_entry(dev, smi)
+    with clock("13"):
+        human = phase_scale(dev, smi)
+    with clock("14"), tempfile.TemporaryDirectory(
+            prefix="ntlink_smoke_") as root:
         behaviours = phase_behaviours(dev, root)
+    PHASE_SECONDS["total"] = round(time.perf_counter() - t0, 1)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
     counts["launches_by_path"]["6 kernel bench"] = kbench["sketch_rows"]
     counts["launches_by_path"].update(new_paths)
     counts["launches_by_path"]["11 bench entry"] = entry["sketch_rows"]
-    counts["launches_by_path"]["scale"] = human.pop("launches")
+    counts["launches_by_path"].update(human.pop("launches"))
     counts["launches_by_path"].update(behaviours)
     log(f"nvidia-smi: {smi}")
     kernels = json.dumps({"kernels": [{
@@ -1808,7 +2036,9 @@ def run_phases() -> list:
                              "11 bench entry": entry["alu_peak"]},
         **probe,
     }]})
-    return [kernels, json.dumps({"ok": True, "device": {
+    seconds = (f"phase seconds ({smi}): "
+               + json.dumps(PHASE_SECONDS, separators=(", ", ": ")))
+    return [seconds, kernels, json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

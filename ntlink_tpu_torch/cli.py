@@ -9,12 +9,14 @@
 
 The targets, parameter names and parsing of ``ntlink_tpu.cli``. `pair`, `scaffold`,
 `gap_fill`, `run_rounds` and `run_rounds_gaps` sketch and map on the CUDA
-card and exit non-zero when there is none; backend=auto and backend=jax
-run on the card alone, backend=hybrid splits the contig sketch and the
-read mapping between the card and the host's C path (hybrid_host_frac pins
-the host's share). backend=numpy asks for the host by name: it resolves no
-device and runs with none visible; it is never taken because a card is
-missing. With several visible cards the read batches split over them with
+card and exit non-zero when there is none. backend=jax runs on the card
+alone; backend=auto maps the reads on the card and, with t > 1 (the
+default t=4), sketches the contigs on the card and the host's t C threads
+at once; backend=hybrid splits both the contig sketch and the read mapping
+between the card and the host's C path (hybrid_host_frac pins the read
+mapping's host share; the contig sketch's split stays adaptive).
+backend=numpy asks for the host by name: it resolves no device and runs
+with none visible; it is never taken because a card is missing. With several visible cards the read batches split over them with
 the index replicated on each, or hash-sharded over a (data, idx) grid with
 index_sharding=hash [idx_shards=N]; with one card hash runs replicated.
 v=1 prints the stage trace and writes <prefix>.trace.json;
@@ -97,11 +99,13 @@ Common options (reference-compatible defaults):
   prefix=<target>.k<k>.w<w>.z<z>  paf=False verbose=True
   ntlink_pairs_tsv=False stringent=False
 Engine options:
-  backend=auto|jax|numpy|hybrid  (auto and jax: the card alone; numpy: the
-                            host by name, no card needed; hybrid splits
-                            reads card+host adaptively, and
-                            hybrid_host_frac=0..1 pins a static share;
-                            default auto, hybrid_host_frac=-1)
+  backend=auto|jax|numpy|hybrid  (jax: the card alone; auto: reads on the
+                            card, contigs on the card and t C threads at
+                            once when t > 1; numpy: the host by name, no
+                            card needed; hybrid splits contigs and reads
+                            card+host adaptively, and hybrid_host_frac=0..1
+                            pins the reads' static share; default auto,
+                            hybrid_host_frac=-1)
   batch_bases=8000000       bases per device batch
   index_sharding=replicated|hash  (several cards: the index on each, or
                             hash-sharded over a (data, idx) grid;

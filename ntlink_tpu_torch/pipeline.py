@@ -7,11 +7,13 @@ Counterpart of ``ntlink_tpu/pipeline.py``. `pair_stage`
 copies of the host stages: the TSV writer, the contig index, `map_reads`
 with its C chaining and rendering, the pair tally and the graph writer.
 The device work is the contig sketch
-(`sketch.TorchSketcher`) and the read mapper (`device_map.TorchMapper`),
+(`sketch.get_backend`: `sketch.TorchSketcher`, or with backend=hybrid, and
+with auto at t > 1, `sketch.TorchHybridSketcher`, which shares the stream
+with the host's C path) and the read mapper (`device_map.TorchMapper`),
 which chains on the device and ships O(runs) payloads under the same gates
 as ``DeviceMapper`` (`_prechain_args`; runs only without verbose or PAF
-output). With backend=hybrid both split their streams with the host's C
-path (`sketch.TorchHybridSketcher`, ``hybrid_map.HybridMapper``).
+output). With backend=hybrid the read stream splits with the host's C path
+too (``hybrid_map.HybridMapper``).
 backend=numpy is the caller asking for the host by name: contig sketch and
 read mapping run on the host (`HostMapper`, chaining on the consumer
 thread) and no device is resolved or touched. `device` may be a sequence
@@ -55,7 +57,7 @@ from .parallel.distributed import (
 from .pairs import PairTally, tally_from_checkpoint
 from .seqio import stream_fastx
 from .seqio.fastx import prefetch_files, stream_codes
-from .sketch import TorchHybridSketcher, TorchSketcher, sketch_fasta_to_tsv
+from .sketch import get_backend, sketch_fasta_to_tsv
 from .tracing import GLOBAL as tracer
 
 BACKENDS = ("auto", "jax", "hybrid", "numpy")
@@ -141,22 +143,19 @@ def ensure_contig_sketch_tsv(cfg: ScaffoldConfig, k: int, w: int,
                              device=None) -> str:
     """Sketch the target assembly on the device to the reference's TSV
     artifact (``ntlink_tpu.pipeline.ensure_contig_sketch_tsv``, :42-57);
-    a fresh, non-empty TSV is reused. backend=hybrid shares the stream
-    with the host's C sketcher; auto and jax sketch on the card alone;
-    numpy (`device` is HOST_ONLY) sketches on the host's cfg.t threads."""
+    a fresh, non-empty TSV is reused. The sketcher is `sketch.get_backend`'s
+    for cfg.backend and cfg.t: backend=hybrid, and auto with t > 1, share
+    the stream between the card and the host's C sketcher (adaptively:
+    hybrid_host_frac pins the read mapping's share only); jax, and auto
+    with t=1, sketch on the card alone; numpy (`device` is HOST_ONLY)
+    sketches on the host's cfg.t threads."""
     global last_sketcher
     out = f"{cfg.target}.k{k}.w{w}.tsv"
     if _is_fresh(out, cfg.target) and os.path.getsize(out) > 0:
         log("Reusing sketch", out)
         return out
     log("Sketching", cfg.target, f"(k={k}, w={w})")
-    if cfg.backend == "numpy":
-        last_sketcher = None
-    elif cfg.backend == "hybrid":
-        last_sketcher = TorchHybridSketcher(device, threads=cfg.t,
-                                            host_frac=cfg.hybrid_host_frac)
-    else:
-        last_sketcher = TorchSketcher(device)
+    last_sketcher = get_backend(cfg.backend, threads=cfg.t, device=device)
     sketch_fasta_to_tsv(cfg.target, out, k, w, backend=last_sketcher,
                         threads=cfg.t)
     return out

@@ -15,8 +15,10 @@ is emptied first. The JAX package's human preset is 750 contigs of 4 Mb
 contig index of such a target resident on one device, and a bounded slice
 of its reads mapped against it (on-device chaining, the default run's
 payload). It reports each step on its own (the contig sketch when there
-is no sketch yet, the TSV parse, the bucket table's build, its upload, the
-device's memory, the read slice's rate) and holds two checks, raising
+is no sketch yet, at the default knobs through `sketch_target`: the card
+and four C threads over one stream; the TSV parse, the bucket table's
+build, its upload, the device's memory, the read slice's rate) and holds
+two checks, raising
 `ScaleCheckError` when either fails: the table read back from the device
 equals the host's table byte for byte, and the first `check_reads` reads'
 raw payloads equal those of `host_map.HostMapper`, the native C path that
@@ -28,6 +30,7 @@ import itertools
 import os
 import resource
 import shutil
+import threading
 import time
 
 import numpy as np
@@ -141,6 +144,46 @@ def peak_rss_gib() -> float:
     return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
 
 
+#: seconds between two samples of RssSampler
+RSS_INTERVAL = 0.02
+
+
+class RssSampler:
+    """Context manager that samples this process's resident set every
+    RSS_INTERVAL seconds on a thread of its own; `peak_gib` is the largest
+    sample (unlike `peak_rss_gib`, it reads one span, not the process's
+    life)."""
+
+    def __init__(self):
+        self.peak = 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    @staticmethod
+    def rss_bytes() -> int:
+        with open("/proc/self/statm") as fh:
+            return int(fh.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+    def _run(self) -> None:
+        while True:
+            self.peak = max(self.peak, self.rss_bytes())
+            if self._stop.wait(RSS_INTERVAL):
+                return
+
+    @property
+    def peak_gib(self) -> float:
+        return self.peak / 2**30
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self.rss_bytes())
+
+
 def host_room(path: str) -> dict:
     """Free bytes on the file system of `path` and available memory (the
     `df` and `free` of the host)."""
@@ -159,8 +202,13 @@ def stress_bytes(n_contigs: int, contig_len: int, n_reads: int) -> int:
     minimizers per base)."""
     target = n_contigs * (contig_len + 8)
     reads = n_reads * (READ_LEN + 12)
-    tsv = int(n_contigs * contig_len * 2 / (W + 1) * 26)
-    return target + reads + tsv
+    return target + reads + sketch_tsv_bytes(n_contigs, contig_len)
+
+
+def sketch_tsv_bytes(n_contigs: int, contig_len: int) -> int:
+    """Bytes of the contig sketch TSV of such a target (about 26 bytes per
+    minimizer, 2/(w+1) minimizers per base)."""
+    return int(n_contigs * contig_len * 2 / (W + 1) * 26)
 
 
 def _same_payload(a, b) -> bool:
@@ -176,48 +224,88 @@ def _same_payload(a, b) -> bool:
         np.array_equal(x[:n], y[:n]) for x, y in zip(a[2][1:5], b[2][1:5]))
 
 
+def sketch_target(target: str, backend: str = None, device=None,
+                  lengths: dict = None, log=print) -> tuple:
+    """The `pair` stage's contig sketch of `target` (K, W) at `backend`, by
+    default the run's, auto, with the run's four threads
+    (``pipeline.ensure_contig_sketch_tsv``: auto with threads > 1 shares the
+    stream between the card and the host's C threads); `lengths` are the
+    target's contig lengths when the caller has read them. Returns
+    (the TSV's path, the readings: wall seconds with the TSV, kernel
+    launches, the card path's rows, chunked contigs, batches and host rows,
+    the sequences each path delivered, Gbase/s, the peak host RSS sampled
+    over the sketch), or (path, None) when a TSV was there already."""
+    dev = device_mod.resolve(device)
+    cfg = ScaffoldConfig(target=target, reads=[], k=K, w=W, z=Z)
+    cfg.backend = backend or cfg.backend
+    lengths = lengths or pipeline.read_scaffold_lengths(target)
+    bases = sum(lengths.values())
+    pipeline.last_sketcher = None
+    launches0 = sketch_cuda.launches
+    rss_before = RssSampler.rss_bytes()
+    t0 = time.perf_counter()
+    with RssSampler() as rss:
+        tsv = pipeline.ensure_contig_sketch_tsv(cfg, K, W, device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    secs = time.perf_counter() - t0
+    sk = pipeline.last_sketcher
+    if sk is None:
+        return tsv, None
+    # the card alone delivers every contig
+    host_seqs = getattr(sk, "host_seqs", 0)
+    device_seqs = getattr(sk, "device_seqs", len(lengths))
+    out = {
+        "backend": cfg.backend, "threads": cfg.t,
+        "sketcher": type(sk).__name__,
+        "seconds": secs,
+        "stream_seconds": sk.stream_seconds,
+        "launches": sketch_cuda.launches - launches0,
+        "device_rows": sk.device_rows, "chunked": sk.chunked,
+        "host_fallbacks": sk.host_fallbacks,
+        "batches_by_pad": {f"{L}{'N' if n else ''}": c for (L, n), c
+                           in sk.batches_by_pad.items()},
+        "device_batches": sum(sk.batches_by_pad.values()),
+        "host_seqs": host_seqs, "device_seqs": device_seqs,
+        "device_share": device_seqs / max(host_seqs + device_seqs, 1),
+        "gbase_per_s": bases / sk.stream_seconds / 1e9,
+        "peak_rss_gib": rss.peak_gib,
+        "rss_before_gib": rss_before / 2**30,
+    }
+    log(f"contig sketch (backend={cfg.backend} t={cfg.t}, "
+        f"{out['sketcher']}): {bases} bases in {secs:.1f} s with the TSV "
+        f"(stream {sk.stream_seconds:.1f} s = {out['gbase_per_s']:.3f} "
+        f"Gbase/s); card {device_seqs} of {host_seqs + device_seqs} contigs "
+        f"({100 * out['device_share']:.1f}%), host {host_seqs}; "
+        f"{out['launches']} sketch kernel launches for "
+        f"{out['device_batches']} card batches, {sk.chunked} chunked "
+        f"contigs, {sk.device_rows} card rows, batches by pad "
+        f"{out['batches_by_pad']}, {sk.host_fallbacks} host-fallback rows; "
+        f"peak host RSS {rss.peak_gib:.2f} GiB (sampled; "
+        f"{out['rss_before_gib']:.2f} GiB before the sketch)")
+    return tsv, out
+
+
 def bounded_run(d: str, n_reads: int = BOUNDED_READS, device=None,
                 check_reads: int = CHECK_READS, threads: int = 0,
                 log=print) -> dict:
     """The contig index of `d`/target.fa on `device` (default the card) and
     the first `n_reads` reads of `d`/reads.fa mapped against it; sketches
-    the target through the `pair` stage's contig path when its TSV is not
-    there yet. Returns the readings (seconds, counts, bytes, rates)."""
+    the target through the `pair` stage's contig path at the default knobs
+    (`sketch_target`) when its TSV is not there yet. Returns the readings
+    (seconds, counts, bytes, rates)."""
     dev = device_mod.resolve(device)
     cuda = dev.type == "cuda"
     target = os.path.join(d, "target.fa")
     reads = os.path.join(d, "reads.fa")
-    cfg = ScaffoldConfig(target=target, reads=[reads], k=K, w=W, z=Z)
     out = {"device": torch.cuda.get_device_name(dev) if cuda else str(dev)}
 
     contig_lengths = pipeline.read_scaffold_lengths(target)
     out["target_bases"] = sum(contig_lengths.values())
-    pipeline.last_sketcher = None
-    launches0 = sketch_cuda.launches
-    t0 = time.perf_counter()
-    tsv = pipeline.ensure_contig_sketch_tsv(cfg, K, W, device=dev)
-    if cuda:
-        torch.cuda.synchronize(dev)
-    sk = pipeline.last_sketcher
-    if sk is not None:
-        out["sketch"] = {
-            "seconds": time.perf_counter() - t0,
-            "stream_seconds": sk.stream_seconds,
-            "launches": sketch_cuda.launches - launches0,
-            "device_rows": sk.device_rows, "chunked": sk.chunked,
-            "host_fallbacks": sk.host_fallbacks,
-            "batches_by_pad": {f"{L}{'N' if n else ''}": c for (L, n), c
-                               in sk.batches_by_pad.items()},
-            "gbase_per_s": out["target_bases"] / sk.stream_seconds / 1e9,
-        }
-        log(f"contig sketch: {out['target_bases']} bases in "
-            f"{out['sketch']['seconds']:.1f} s with the TSV (stream "
-            f"{sk.stream_seconds:.1f} s = "
-            f"{out['sketch']['gbase_per_s']:.3f} Gbase/s), "
-            f"{out['sketch']['launches']} sketch kernel launches, "
-            f"{sk.chunked} chunked contigs, {sk.device_rows} device rows, "
-            f"batches by pad {out['sketch']['batches_by_pad']}, "
-            f"{sk.host_fallbacks} host-fallback rows")
+    tsv, sketch = sketch_target(target, device=dev, lengths=contig_lengths,
+                                log=log)
+    if sketch is not None:
+        out["sketch"] = sketch
 
     t0 = time.perf_counter()
     index = ContigIndex.from_tsv(tsv)

@@ -16,9 +16,12 @@ consecutive-winner dedup at a chunk's first window. Sub-k rows, oversized
 rows with N and slot-overflow rows are sketched exactly on the host (the
 native C sketcher) and counted in `host_fallbacks`.
 
-`TorchHybridSketcher` (backend=hybrid) runs a TorchSketcher and the native
-C thread pool at once over one stream, with ``HybridSketcher``'s scheduler
-and quanta; both paths are exact, so the split changes speed, not bytes.
+`TorchHybridSketcher` runs a TorchSketcher and the native C thread pool at
+once over one stream, with ``HybridSketcher``'s scheduler and quanta; both
+paths are exact, so the split changes speed, not bytes. `get_backend`
+chooses between them as ``ntlink_tpu.sketch.get_backend`` does: the hybrid
+for backend=hybrid, and for backend=auto whenever the C sketcher is built
+and the run has more than one host thread.
 """
 from __future__ import annotations
 
@@ -40,6 +43,21 @@ from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
 from .seqio import stream_fastx
 from .stream_pipeline import DevicePipeline, next_pow2
+
+
+def get_backend(name: str = "auto", threads: int = 1, device=None):
+    """The contig sketcher of backend `name` ("numpy", "jax", "hybrid",
+    "auto") on `device` (``ntlink_tpu/sketch.py::get_backend``, :20-50):
+    None (the host) for numpy; TorchHybridSketcher for hybrid, and for auto
+    with threads > 1 when the C sketcher is built; else TorchSketcher, the
+    card alone. hybrid without the C sketcher raises. Unlike the JAX
+    package's, auto never gives the device up for the host."""
+    if name == "numpy":
+        return None
+    if name == "hybrid" or (name == "auto" and threads > 1
+                            and sketch_module() is not None):
+        return TorchHybridSketcher(device, threads=max(1, threads))
+    return TorchSketcher(device)
 
 
 def sketch_sequences(
@@ -106,20 +124,26 @@ def sketch_sequences(
 
 
 class _DeviceSketchPath:
-    """Adapt a device sketch backend to the HybridStream path interface."""
+    """Adapt a device sketch backend to the HybridStream path interface;
+    `bases` counts what it sketched."""
 
     def __init__(self, backend, k: int, w: int):
         self.backend, self.k, self.w = backend, k, w
+        self.bases = 0
 
     def map_stream_raw(self, named_codes):
-        yield from self.backend.sketch_stream(named_codes, self.k, self.w)
+        for item in self.backend.sketch_stream(named_codes, self.k, self.w):
+            self.bases += item[1]
+            yield item
 
 
 class _HostSketchPath:
-    """Threaded native-C sketch path (HybridStream interface)."""
+    """Threaded native-C sketch path (HybridStream interface); `bases`
+    counts what it sketched."""
 
     def __init__(self, k: int, w: int, threads: int):
         self.k, self.w, self.threads = k, w, threads
+        self.bases = 0
 
     def map_stream_raw(self, named_codes):
         def to_seq(codes):
@@ -127,12 +151,14 @@ class _HostSketchPath:
                 return codes
             return nthash_np.encode(codes)
 
-        yield from sketch_sequences(
+        for item in sketch_sequences(
             ((name, to_seq(c)) for name, c in named_codes),
             self.k,
             self.w,
             threads=self.threads,
-        )
+        ):
+            self.bases += item[1]
+            yield item
 
 
 
@@ -171,7 +197,8 @@ class TorchSketcher:
         #: device rows (whole sequences and chunks) and chunked sequences
         self.device_rows = 0
         self.chunked = 0
-        #: device batches dispatched, by (padded row length, has N)
+        #: device batches whose step was issued, by (padded row length,
+        #: has N): one sketch kernel launch each
         self.batches_by_pad: Dict[Tuple[int, bool], int] = {}
         #: sketch kernel launches of every stream so far
         self.kernel_launches = 0
@@ -222,9 +249,11 @@ class TorchSketcher:
         def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
             pad = key[0]
             slots = self._slots_for(pad, w)
-            self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
             p, ln, nm = to_device(self.device, packed, lengths, nmask)
             out = sketch_step(p, ln, k, w, pad, slots, nmask=nm)
+            # counted once the step is issued: a batch whose step raised
+            # launched no kernel
+            self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
             pipe.submit_drain((*copy_back(out), len(lengths), slots, rows,
                                row_codes))
 
@@ -390,33 +419,71 @@ HYBRID_BLOCK_ITEMS = 64
 HYBRID_BLOCK_BASES = 16_000_000
 
 
+def _card_counter(name: str) -> property:
+    return property(lambda self: getattr(self.device_backend, name),
+                    doc=f"The card path's `TorchSketcher.{name}`.")
+
+
 class TorchHybridSketcher:
     """`sketch_stream` backend that splits the sequences between a
     TorchSketcher and the native C thread pool (``HybridSketcher``'s
-    contract and quanta)."""
+    contract and quanta). The card path's counters read through, so that a
+    reader of `pipeline.last_sketcher` needs no case for the hybrid; its
+    `host_fallbacks` are the card path's exact host rows, not the C path's
+    sequences (`host_seqs`)."""
+
+    batches_by_pad = _card_counter("batches_by_pad")
+    kernel_launches = _card_counter("kernel_launches")
+    device_rows = _card_counter("device_rows")
+    chunked = _card_counter("chunked")
+    host_fallbacks = _card_counter("host_fallbacks")
 
     def __init__(self, device=None, threads: int = 4,
                  host_frac: float = -1.0):
+        if sketch_module() is None:
+            # the host path is the C thread pool, never the NumPy hasher
+            raise RuntimeError(
+                "backend=hybrid requires the native C sketch module "
+                "(ntlink_tpu_torch.native.sketch) — build it or use "
+                "backend=jax/auto"
+            )
         self.device_backend = TorchSketcher(device)
         self.threads = max(1, threads)
         self.host_frac = host_frac
-        #: sequences each path delivered in the latest stream
+        #: sequences each path delivered in the latest stream, and the
+        #: bases each sketched (a sequence that a stall rescue ran again on
+        #: the other path counts on both)
         self.host_seqs = 0
         self.device_seqs = 0
+        self.host_bases = 0
+        self.device_bases = 0
+        #: wall seconds of every stream so far (the card path's own, of its
+        #: share alone, are `device_backend.stream_seconds`)
+        self.stream_seconds = 0.0
 
     def sketch_stream(self, named_seqs, k: int, w: int):
-        sched = HybridStream(
-            _DeviceSketchPath(self.device_backend, k, w),
-            _HostSketchPath(k, w, self.threads),
-            host_frac=self.host_frac,
-        )
+        card = _DeviceSketchPath(self.device_backend, k, w)
+        host = _HostSketchPath(k, w, self.threads)
+        sched = HybridStream(card, host, host_frac=self.host_frac)
         sched.BLOCK_READS = HYBRID_BLOCK_ITEMS
         sched.BLOCK_BASES = HYBRID_BLOCK_BASES
+        t0 = time.perf_counter()
         try:
             yield from sched.stream(named_seqs)
         finally:
+            secs = time.perf_counter() - t0
+            self.stream_seconds += secs
             self.host_seqs = sched.host_reads
             self.device_seqs = sched.device_reads
+            self.host_bases, self.device_bases = host.bases, card.bases
+            print(
+                f"# ntlink_tpu_torch hybrid sketch: {secs:.3f} s; "
+                f"{self.device_seqs} sequence(s), {card.bases} bases on "
+                f"{self.device_backend.device}; {self.host_seqs}, "
+                f"{host.bases} bases on the host's {self.threads} C "
+                f"thread(s)",
+                file=sys.stderr,
+            )
 
 
 def format_minimizers_bytes(mins: Minimizers, with_strand: bool = True) -> bytes:

@@ -4,7 +4,8 @@
 
 Writes `chip_smoke.py`'s synthetic dataset (C. elegans scale) to a
 temporary directory and runs the port's `pair` through its CLI three times,
-each in a fresh directory (so each sketches the contigs too): once to warm
+each in a fresh directory (so each sketches the contigs too, at the
+default knobs on the card and four C threads at once): once to warm
 up (kernel build, allocator), then the default run (verbose, prechained)
 and the lean run (verbose=False, runs-only), each with v=1 and the
 tracer's ``torch.profiler`` hook on (`tracing.Tracer.torch_profile_dir`),
@@ -21,7 +22,8 @@ device's busy share of the stage's wall time, and the five kernels that
 took most. Every run has ``NTLINK_TIMING=1`` set, and the read stream's
 host-side split (`TorchMapper.last_timing`: seconds per phase, by the
 thread that each is timed on) is printed beside the device split of
-`pair/map-reads`. Exits 1 without a CUDA device.
+`pair/map-reads`, and the contig sketch's split between the card and the
+host. Exits 1 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -97,10 +99,14 @@ def main() -> int:
                 None if name == "warm-up" else os.path.join(root, "prof", name)
             )
             stage_s = run_pair(root, name, argv)
-            sketch_s = pipeline.last_sketcher.stream_seconds
+            sk = pipeline.last_sketcher
             stream_s = pipeline.last_mapper.stream_seconds
             print(f"profile: {smi}: {name} run: pair stage {stage_s:.3f} s, "
-                  f"contig sketch {sketch_s:.3f} s, mapping stream "
+                  f"contig sketch {sk.stream_seconds:.3f} s (card "
+                  f"{sk.device_seqs}, host {sk.host_seqs} contigs; "
+                  f"{sk.kernel_launches} launches for "
+                  f"{sum(sk.batches_by_pad.values())} card batches), "
+                  f"mapping stream "
                   f"{stream_s:.3f} s (profiler "
                   f"{'off' if name == 'warm-up' else 'on'})", flush=True)
             if name == "warm-up":

@@ -7,10 +7,13 @@ The counterpart of ``scripts/stress_3g_bounded.py``. `<dir>` holds
 target.fa and reads.fa (``scripts/stress_scale_torch.py <dir> 750 4000000
 <n> `` with NTLINK_STRESS_GEN_ONLY=1 writes the human preset's); without
 target.fa.k32.w100.tsv there the target is sketched first, through the
-`pair` stage's contig path. It reports, each on its own line: the contig
-sketch, the TSV parse (seconds, minimizers, contigs, host RSS), the bucket
-table's build (seconds, buckets, `max_probes`, the load regime, bytes), the
-upload (seconds, device memory after it), and the slice of `n_reads`
+`pair` stage's contig path at the default knobs (backend=auto t=4: the card
+and four C threads over one stream; `scale.sketch_target`). It reports,
+each on its own line: the contig sketch (the card's and the host's
+contigs, the card's launches and batches, the sampled peak host RSS),
+the TSV parse (seconds, minimizers, contigs, host RSS), the bucket table's
+build (seconds, buckets, `max_probes`, the load regime, bytes), the upload
+(seconds, device memory after it), and the slice of `n_reads`
 (default 20,000) mapped with on-device chaining (reads/s, Mbase/s, peak
 device MiB, peak host RSS). Two checks, and the run fails unless both hold:
 the table read back from the card equals the host's byte for byte, and the

@@ -151,8 +151,9 @@ def main(argv=None) -> int:
                  "max_probes": didx.max_probes,
                  "bytes": int(didx.t_bkt.nbytes),
                  "minimizers": len(pipeline.last_mapper.index)}
+    # the contig sketcher (TorchHybridSketcher at the default knobs: its
+    # counters are the card path's, beside each path's contigs)
     sk = pipeline.last_sketcher
-    sk = getattr(sk, "device_backend", sk)
     print(json.dumps({
         "dataset": {"n_contigs": args.n_contigs,
                     "contig_len": args.contig_len, "n_reads": args.n_reads,
@@ -172,6 +173,10 @@ def main(argv=None) -> int:
         "peak_device_mib": peak_dev,
         "table": table,
         "sketch_launches": getattr(sk, "kernel_launches", None),
+        "sketch_device_batches": (sum(sk.batches_by_pad.values())
+                                  if sk is not None else None),
+        "sketch_card_contigs": getattr(sk, "device_seqs", None),
+        "sketch_host_contigs": getattr(sk, "host_seqs", None),
         "read_launches": getattr(pipeline.last_mapper, "kernel_launches",
                                  None),
         "joins": joined,

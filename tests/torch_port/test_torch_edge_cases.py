@@ -41,10 +41,11 @@ def random_seq(rng, n):
     return "".join(rng.choice("ACGT") for _ in range(n))
 
 
-def _flow_both(tmp_path, monkeypatch, write, gap_fill=False, scaffold=True):
+def _flow_both(tmp_path, monkeypatch, write, gap_fill=False, scaffold=True,
+               backend="auto"):
     """`write(d)` into two directories, then the port's flow on the CPU
-    device in one and ntlink_tpu's backend=numpy flow in the other; the
-    directories must be equal. Returns the port's final path."""
+    device in one (at `backend`) and ntlink_tpu's backend=numpy flow in the
+    other; the directories must be equal. Returns the port's final path."""
     for side in ("torch", "numpy"):
         os.makedirs(tmp_path / side)
         write(tmp_path / side)
@@ -53,7 +54,7 @@ def _flow_both(tmp_path, monkeypatch, write, gap_fill=False, scaffold=True):
     want = (ref.scaffold_stage(rcfg) if scaffold
             else ref.run_scaffold(rcfg, gap_fill=gap_fill))
     monkeypatch.chdir(tmp_path / "torch")
-    cfg = ScaffoldConfig(**KW)
+    cfg = ScaffoldConfig(backend=backend, **KW)
     got = (pipeline.scaffold_stage(cfg, device="cpu") if scaffold
            else pipeline.run_scaffold(cfg, gap_fill=gap_fill, device="cpu"))
     assert got == want
@@ -89,7 +90,9 @@ def test_contigs_shorter_than_k(tmp_path, monkeypatch):
         write_fasta(d / "target.fa", contigs)
         write_fasta(d / "reads.fa", reads)
 
-    final = _flow_both(tmp_path, monkeypatch, write)
+    # the contig sketch on the device alone (backend=jax), whose rows these
+    # are
+    final = _flow_both(tmp_path, monkeypatch, write, backend="jax")
     out = {r.name.split()[0] for r in stream_fastx(os.path.realpath(final))}
     assert out == {"tiny", "c1"}
     # the sub-k contig takes the exact host path, the other the device's
@@ -144,7 +147,9 @@ def test_degenerate_rows_match_the_jax_package(tmp_path, monkeypatch, case):
         write_fasta(d / "target.fa", contigs)
         write_fasta(d / "reads.fa", reads)
 
-    _flow_both(tmp_path, monkeypatch, write)
+    # the contig sketch on the device alone (backend=jax): every contig row
+    # is the device's
+    _flow_both(tmp_path, monkeypatch, write, backend="jax")
     mapper, sketcher = pipeline.last_mapper, pipeline.last_sketcher
     # every row went through the device path, none to the exact host path
     assert mapper.device_reads == len(reads) and mapper.host_fallbacks == 0

@@ -15,7 +15,9 @@ from ntlink_tpu import pipeline as ref
 from ntlink_tpu.config import ScaffoldConfig as RefConfig
 from ntlink_tpu_torch import pipeline, sketch
 from ntlink_tpu_torch.config import ScaffoldConfig
-from ntlink_tpu_torch.sketch import TorchSketcher, sketch_fasta_to_tsv
+from ntlink_tpu_torch.sketch import (
+    TorchHybridSketcher, TorchSketcher, sketch_fasta_to_tsv,
+)
 
 from .synthetic import assert_same_tree, write_dataset
 
@@ -88,7 +90,11 @@ def test_killed_sketch_leaves_no_reusable_artifact(tmp_path, monkeypatch):
     stale = tmp_path / "t.fa.k16.w10.tsv"
     stale.write_bytes(b"")
     got = pipeline.ensure_contig_sketch_tsv(cfg, 16, 10, device="cpu")
-    assert isinstance(pipeline.last_sketcher, TorchSketcher)
+    # the default knobs (t=4): the device and the host's C threads share
+    # the stream, and between them deliver both contigs
+    sk = pipeline.last_sketcher
+    assert isinstance(sk, TorchHybridSketcher)
+    assert sk.device_seqs + sk.host_seqs == 2
     body = open(got, "rb").read()
     assert len(body) > 0
     stale.write_bytes(b"")

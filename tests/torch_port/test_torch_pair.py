@@ -33,7 +33,9 @@ def test_pair_artifacts_match_jax_package(tmp_path, monkeypatch):
     for side in ("torch", "jax", "numpy"):
         _write_dataset(tmp_path / side)
     monkeypatch.chdir(tmp_path / "torch")
-    pair_stage(_cfg(batch_bases=200_000), device="cpu")
+    # backend=jax: the contig sketch on the device alone (the reads map on
+    # the device at auto and jax alike), so that its N batch is the device's
+    pair_stage(_cfg(batch_bases=200_000, backend="jax"), device="cpu")
     last_mapper, last_sketcher = pipeline.last_mapper, pipeline.last_sketcher
     for backend in ("jax", "numpy"):
         monkeypatch.chdir(tmp_path / backend)

@@ -1,8 +1,10 @@
 """The whole engine of the port against synthetic ground truth, after
 ``tests/test_synthetic_truth.py`` and with its generators: a random genome
 is split into contigs with known 500 b gaps, and reads sampled across it
-drive `pipeline.run_scaffold` (backend=auto on the CPU device: the contig
-sketch and the read mapping go through the kernel's plain version) to one
+drive `pipeline.run_scaffold` (backend=auto on the CPU device: the read
+mapping and the device's share of the contig sketch go through the
+kernel's plain version, the rest of the contigs through the host's C
+threads) to one
 path in the true order and orientation with every gap estimate within
 200-800 b; the gap-fill variant patches both gaps with read sequence.
 Every file each run leaves is byte for byte ntlink_tpu's backend=numpy
@@ -15,6 +17,7 @@ from ntlink_tpu import pipeline as ref
 from ntlink_tpu.config import ScaffoldConfig as RefConfig
 from ntlink_tpu_torch import pipeline
 from ntlink_tpu_torch.config import ScaffoldConfig
+from ntlink_tpu_torch.sketch import TorchHybridSketcher
 
 from test_synthetic_truth import make_genome, sample_reads
 
@@ -40,7 +43,13 @@ def _both(tmp_path, monkeypatch, gap_fill):
     monkeypatch.chdir(tmp_path / "torch")
     cfg = ScaffoldConfig(**kw)
     final = pipeline.run_scaffold(cfg, gap_fill=gap_fill, device="cpu")
-    assert pipeline.last_sketcher is not None
+    # the default knobs (t=4): the contig sketch shared between the device
+    # and the host's C threads, every contig delivered by one of them
+    sk = pipeline.last_sketcher
+    assert isinstance(sk, TorchHybridSketcher)
+    assert sk.device_seqs >= 1
+    assert sk.device_seqs + sk.host_seqs == len(
+        pipeline.read_scaffold_lengths("target.fa"))
     assert pipeline.last_mapper.device_reads > 0
     monkeypatch.chdir(tmp_path / "numpy")
     assert ref.run_scaffold(RefConfig(backend="numpy", **kw),
