@@ -43,7 +43,9 @@ index_sharding=hash idx_shards=2, plain and with repeats=True on 2,000
 reads, and the dryruns of ``ntlink_tpu_torch.graft_entry``. Phase 9:
 `scaffold gap_fill v=1` under NTLINK_TORCH_PROFILE: the span names in
 order, one Chrome trace per stage, and the `pair/map-reads` trace's device
-time by `record_function` range. Phase 10: backend=numpy in a process
+time by `record_function` range (under the profile the steps run
+eagerly), then the device ms per read batch of the same reads through
+step graph replays beside the eager steps'. Phase 10: backend=numpy in a process
 with no CUDA device visible. Phase 12 (with them, on the same draft): the
 launchers as a user starts them, `./ntLink_torch pair` against the
 one-process run and `./ntLink_rounds_torch` without a rounds target. Phase
@@ -73,16 +75,30 @@ each case with the sketch kernel's count set to 0 just before it and every
 launch matched to a device batch: 14a, Make-style reuse on phase 5's
 draft, written again (a second `scaffold` launches nothing and leaves
 every mtime, touching the reads maps them again to the same DOT, a contig
-sketch killed on the card alone after its first batch, and one killed at
-the default knobs at the card's first batch, leave neither a TSV nor a
-.tmp); 14b, round 2 from the
-lifted mapping (`pipeline.map_reads` made to raise) against a fresh remap,
-the DOT, path and FASTA equal; 14c, the genome of known truth of
+sketch killed on the card alone at its second step call (the capture of
+its first batch), and one killed at the default knobs at the card's first
+batch, leave neither a TSV nor a .tmp); 14b, on a draft whose second round
+still joins (`write_rounds_dataset` of tests/torch_port/synthetic.py),
+round 1, then round 2 from the lifted mapping (`pipeline.map_reads` made
+to raise) against a fresh remap, the DOT, path and FASTA equal and fewer
+scaffolds than round 1 left; 14c, the genome of known truth of
 ``tests/test_synthetic_truth.py`` reassembled in order with its gaps, and
 gap-filled, card == CPU; 14d, degenerate inputs (empty reads, reads that
 map nowhere, sub-k contigs, all-N contig and read, reads of k, k+1 and
 k+w-2, gap_fill with nothing to fill), card == CPU, launches equal to the
 CPU run's batches.
+The step graphs (``ntlink_tpu_torch/step_graph.py``): on the card every
+stream replays one CUDA graph of its step per batch, captured once per
+static key at its second batch. Through every phase run in this
+process, the first replay of each key of each graph set on a batch after
+its capture batch is kept with that batch, and as the phase ends it must
+equal the eager step on it, byte for byte (its compare launches not
+counted); each flow's log line gives its captures, replays, capture
+seconds and first batches run eagerly. Phase 15 then makes each cell of
+the grid (the sketch step and the mapping step's four payload kinds, at
+phase 1's pads, with and without N) that no flow replayed so, at the
+flows' batch heights: eager on one batch, captured and replayed on the
+second, replayed on the third, each equal to the eager step.
 Every phase prints its lines ("phase <name>: ...") and, as it ends, its
 wall seconds ("seconds of phase <name>: <s>"); the line before the two
 JSON lines gives the seconds of every phase. Any failure
@@ -93,6 +109,7 @@ from __future__ import annotations
 
 import contextlib
 import filecmp
+import importlib.util
 import json
 import os
 import re
@@ -103,6 +120,8 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -110,11 +129,14 @@ import torch
 
 from ntlink_tpu_torch import (
     bench, cli, graft_entry, kernel_bench, mapping_step, native, pipeline,
-    scale, tracing,
+    scale, step_graph, tracing,
 )
 from ntlink_tpu_torch import sketch as sketch_mod
 from ntlink_tpu_torch.liftover import liftover_mappings
-from ntlink_tpu_torch.device_map import batch_rows
+from ntlink_tpu_torch.device_map import (
+    TorchMapper, batch_rows, copy_back, pack_batch, pinned,
+)
+from ntlink_tpu_torch.index import ContigIndex
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
@@ -214,11 +236,18 @@ SCAF_ARGV = ["scaffold", "target=target.fa", "reads=reads.fa", "k=32",
 ROUND2_ARGV = ["scaffold", "target=round1.fa", "reads=reads.fa", "k=32",
                "w=100", "z=1000"]
 ROUND2_PREFIX = "round1.fa.k32.w100.z1000"
-# the contig sketch of the killed stream dies at its second batch
+# the contig sketch of the killed stream dies at its second step call:
+# on the card that is the capture of its first batch's step graph
 KILL_AFTER_STEPS = 1
 TRUTH_BASES = np.array(list("ACGT"))
 #: wall seconds of each phase of this run, by phase name
 PHASE_SECONDS = {}
+# phase 15: the step graphs. The grid of keys whose replays must equal the
+# eager step: each step's payload kind at phase 1's pads, with and without
+# N, at the batch heights of the flows' batches of bases
+GRAPH_KINDS = ("sketch", "no chain", "hash planes", "anchors", "runs-only")
+GRAPH_CELLS = [(kind, pad, has_n) for kind in GRAPH_KINDS for pad in PADS
+               for has_n in (False, True)]
 
 
 def log(*parts) -> None:
@@ -541,6 +570,75 @@ def make_dir(root: str, name: str, links) -> str:
     return d
 
 
+def graph_kind(static: dict) -> str:
+    """The payload kind of a step call, from its static arguments."""
+    if "max_mins" in static:
+        return "sketch"
+    if static["runs"]:
+        return "runs-only"
+    if static["with_hashes"]:
+        return "hash planes"
+    return "no chain" if static["clen"] is None else "anchors"
+
+
+class GraphCheck:
+    """Every step graph key's first replay on a batch other than the one it
+    was captured on, in this process, against the eager step. While
+    installed, `StepGraphs.run` keeps, at that replay of each key of each
+    graph set, the batch and a host copy of the replayed payload (copied
+    on the replay's stream); `verify`, called as each phase ends, runs the
+    eager step on that batch on the card and compares the bytes. Its launches are compare launches: the kernel's
+    count is put back after them."""
+
+    def __init__(self):
+        self.pending = []
+        #: (kind, pad, has N) -> keys held, over every phase so far
+        self.cells = {}
+        self._seen = weakref.WeakKeyDictionary()
+        self._real = None
+
+    def install(self) -> None:
+        real = self._real = step_graph.StepGraphs.run
+        check = self
+
+        def run(graphs, step, batch, static):
+            replays, captures = graphs.replays, graphs.captures
+            out = real(graphs, step, batch, static)
+            if graphs.replays > replays and graphs.captures == captures:
+                seen = check._seen.setdefault(graphs, set())
+                key = graphs.key(step, batch, static)
+                if key not in seen:
+                    seen.add(key)
+                    check.pending.append(
+                        (graphs.device, step, batch, static, out.cpu()))
+            return out
+
+        step_graph.StepGraphs.run = run
+
+    def uninstall(self) -> None:
+        step_graph.StepGraphs.run = self._real
+
+    def verify(self, label: str) -> None:
+        if not self.pending:
+            return
+        launches = sketch_cuda.launches
+        for dev, step, batch, static, replayed in self.pending:
+            inputs = {n: None if t is None else t.to(dev)
+                      for n, t in batch.items()}
+            eager = step(**inputs, **static).cpu()
+            cell = (graph_kind(static), static["L"],
+                    batch["nmask"] is not None)
+            if not torch.equal(eager, replayed):
+                fail(f"phase {label}: the replay of a {cell} step graph "
+                     f"differs from the eager step")
+            self.cells[cell] = self.cells.get(cell, 0) + 1
+        sketch_cuda.launches = launches
+        log(f"phase {label}: {len(self.pending)} step graph keys, each "
+            f"one's first replay after its capture batch equal to the "
+            f"eager step byte for byte")
+        self.pending.clear()
+
+
 def card_pair(d: str, argv, dev, label: str):
     """The port's CLI on the card in `d`, with the launch count set to 0
     just before and read just after. Returns (mapper, sketcher or None,
@@ -568,7 +666,12 @@ def card_pair(d: str, argv, dev, label: str):
         f"mapping"
         + (f", {card_sk.kernel_launches} contig sketch" if card_sk else "")
         + f"); read batches by (pad, has N) {mapper.batches_by_pad}; "
-        f"{mapper.host_fallbacks} host-fallback reads")
+        f"{mapper.host_fallbacks} host-fallback reads; wire_stats "
+        f"{mapper.wire_stats}; read mapping "
+        f"{step_graph.summary(mapper.graph_counts())}"
+        + (f", contig sketch "
+           f"{step_graph.summary(step_graph.counts([card_sk.graphs]))}"
+           if card_sk else ""))
     if card_sk is not None:
         log(f"{label}: contig sketch on the card: "
             f"{card_sk.stream_seconds:.3f} s; {card_sk.device_rows} device "
@@ -1069,7 +1172,8 @@ def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
     return by_path
 
 
-def phase_tracing(root: str, inputs, one_scaffold: str, must) -> dict:
+def phase_tracing(dev, root: str, inputs, one_scaffold: str,
+                  must) -> dict:
     """Phase 9: v=1 with the profile hook."""
     d = make_dir(root, "p9", inputs)
     prof_dir = os.path.join(root, "prof")
@@ -1123,7 +1227,42 @@ def phase_tracing(root: str, inputs, one_scaffold: str, must) -> dict:
     log(f"phase 9:   {'(outside every range)':<24} "
         f"{split['unattributed_us'] / 1e3:9.3f} ms "
         f"{split['unattributed_us'] / total:7.2%}")
-    return {"9 scaffold gap_fill v=1": sketch_cuda.launches}
+    launches = sketch_cuda.launches
+    eager_batches = sum(pipeline.last_mapper.batches_by_pad.values())
+    replay_ms, replays = replay_device_ms(dev, root, d)
+    log(f"phase 9: device ms per read batch: eager steps (the profiled "
+        f"flow, {eager_batches} batches) {total / 1e3 / eager_batches:.3f}, "
+        f"graph replays (the same reads again with a mapper of its own, "
+        f"keys captured in a first pass, {replays} replays profiled) "
+        f"{replay_ms:.3f}")
+    return {"9 scaffold gap_fill v=1": launches}
+
+
+def replay_device_ms(dev, root: str, d: str):
+    """The pair stage's reads of `d` through a mapper of the same kind with
+    its step graphs: once to capture every key, then once more under
+    ``torch.profiler`` (a tracer of its own, so the steps stay graphs).
+    Returns (device ms per batch of the second pass, its replays)."""
+    cfg = cli.parse(SCAF2_ARGV)[1]
+    index = ContigIndex.from_tsv(os.path.join(d, CONTIG_TSV))
+    lengths = pipeline.read_scaffold_lengths(os.path.join(d, "target.fa"))
+    mapper = pipeline.make_mapper(cfg, index, lengths, [dev])
+
+    def run():
+        run_in(d, lambda: pipeline.map_reads(cfg, index, lengths, None, None,
+                                             mapper))
+        torch.cuda.synchronize(dev)
+
+    run()
+    replays0 = mapper.graph_counts()[1]
+    tracer = tracing.Tracer(enabled=True,
+                            torch_profile_dir=os.path.join(root, "prof_g"))
+    with tracer.stage("replays"):
+        run()
+    replays = mapper.graph_counts()[1]
+    split = tracing.stage_device_times(
+        os.path.join(root, "prof_g", "replays", "trace.json"))
+    return split["total_us"] / 1e3 / (replays - replays0), replays - replays0
 
 
 def phase_numpy(root: str, inputs, one_pair: str) -> None:
@@ -1410,7 +1549,8 @@ def phase_scale(dev, smi: str) -> dict:
                 f"{r['device_seqs']} of {SCALE_CONTIGS} contigs "
                 f"({100 * r['device_share']:.1f}%), {r['launches']} "
                 f"launches, peak host RSS {r['peak_rss_gib']:.2f} GiB "
-                f"(sampled; {r['rss_before_gib']:.2f} GiB before)")
+                f"(sampled; {r['rss_before_gib']:.2f} GiB before); "
+                f"{step_graph.summary(r['step_graphs'])}")
         log(f"phase 13: the {len(sketches)} TSVs byte-identical "
             f"({os.path.getsize(first_tsv)} bytes)")
         sketch_cuda.launches = 0
@@ -1447,7 +1587,8 @@ def phase_scale(dev, smi: str) -> dict:
             f"{out['payloads_checked']} payloads equal to HostMapper's; "
             f"peak device memory {mp['peak_device_mib']:.1f} MiB, peak host RSS "
             f"{mp['peak_rss_gib']:.2f} GiB; {launches} sketch kernel "
-            f"launches, all read mapping")
+            f"launches, all read mapping; "
+            f"{step_graph.summary(mp['step_graphs'])}")
         # the kernel on the sketch's own contig batch, after the count was
         # read: the launches of the comparison and the timing do not count
         k, w = scale.K, scale.W
@@ -1508,7 +1649,8 @@ def phase_new_paths(dev) -> dict:
         with clock("8"):
             by_path.update(phase_replicas(dev, root, data, one_pair))
         with clock("9"):
-            by_path.update(phase_tracing(root, inputs, one_scaffold, must))
+            by_path.update(phase_tracing(dev, root, inputs, one_scaffold,
+                                         must))
         with clock("10"):
             phase_numpy(root, inputs, one_pair)
         with clock("12"):
@@ -1582,8 +1724,7 @@ def mtimes(d: str) -> dict:
 
 def phase_reuse(dev, root: str, data: str) -> dict:
     """Phase 14a: Make-style reuse on the card (tests/test_incremental.py).
-    Returns the launches by case and the directory of its last scaffold,
-    round 1 of 14b."""
+    Returns the launches by case."""
     inputs = [os.path.join(data, f) for f in ("target.fa", "reads.fa")]
     d = make_dir(root, "p14a", inputs)
     dot = os.path.join(d, PREFIX + ".n1.scaffold.dot")
@@ -1660,15 +1801,34 @@ def phase_reuse(dev, root: str, data: str) -> dict:
             f"neither the TSV nor a .tmp left")
         killed_launches[f"14a killed sketch, {name}"] = launches
     return {"14a first scaffold": first, "14a reads touched": remap,
-            **killed_launches}, d
+            **killed_launches}
 
 
-def phase_lifted(root: str, round1: str, reads: str) -> dict:
-    """Phase 14b: round 2 on the card from the lifted mapping (with
+def phase_lifted(root: str) -> dict:
+    """Phase 14b: on a draft whose second round still joins
+    (`write_rounds_dataset` of tests/torch_port/synthetic.py), round 1 on
+    the card, then round 2 on the card from the lifted mapping (with
     `pipeline.map_reads` made to raise) and from a fresh remap
-    (tests/test_rounds_neutrality.py). Round 1 is 14a's last scaffold."""
+    (tests/test_rounds_neutrality.py): the same DOT, path and FASTA, with
+    fewer scaffolds than round 1 left."""
+    data = os.path.join(root, "p14b_data")
+    # by its path: a package named `tests` may be installed on the machine
+    spec = importlib.util.spec_from_file_location(
+        "ntlink_smoke_synthetic",
+        os.path.join(REPO, "tests", "torch_port", "synthetic.py"))
+    synthetic = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(synthetic)
+    synthetic.write_rounds_dataset(data)
+    reads = os.path.join(data, "reads.fa")
+    round1 = make_dir(root, "p14b_round1",
+                      [os.path.join(data, "target.fa"), reads])
+    round1_launches, secs = card_flow(round1, SCAF_ARGV,
+                                      "phase 14b (round 1)")
     final = os.path.realpath(os.path.join(round1, PREFIX
                                           + ".ntLink.scaffolds.fa"))
+    n1 = len(list(stream_fastx(final)))
+    log(f"phase 14b (round 1): {round1_launches} sketch kernel launches, "
+        f"{n1} scaffolds, {secs:.1f} s")
     runs = {}
     for name in ("lifted", "fresh"):
         d = make_dir(root, f"p14b_{name}", [reads])
@@ -1714,7 +1874,13 @@ def phase_lifted(root: str, round1: str, reads: str) -> dict:
                  f"fresh remap's")
         log(f"phase 14b: {name}: lifted == fresh remap "
             f"({os.path.getsize(pa)} bytes)")
-    return {"14b lifted round 2": runs["lifted"][1],
+    n2 = len(list(stream_fastx(os.path.join(
+        a, ROUND2_PREFIX + ".ntLink.scaffolds.fa"))))
+    if n2 >= n1:
+        fail(f"phase 14b: round 2 left {n2} scaffolds of round 1's {n1}")
+    log(f"phase 14b: round 2 joined {n1} scaffolds into {n2}")
+    return {"14b round 1": round1_launches,
+            "14b lifted round 2": runs["lifted"][1],
             "14b fresh round 2": runs["fresh"][1]}
 
 
@@ -1870,10 +2036,9 @@ def phase_behaviours(dev, root: str) -> dict:
     os.makedirs(data)
     write_dataset(data, label="phase 14", **SMALL)
     with clock("14a"):
-        by_path, round1 = phase_reuse(dev, root, data)
+        by_path = phase_reuse(dev, root, data)
     with clock("14b"):
-        by_path.update(phase_lifted(root, round1,
-                                    os.path.join(data, "reads.fa")))
+        by_path.update(phase_lifted(root))
     with clock("14c"):
         by_path.update(phase_truth(root))
     with clock("14d"):
@@ -1952,6 +2117,106 @@ def phase_bench(dev) -> dict:
             "sketch_rows": sketch_cuda.launches}
 
 
+def graph_batches(rng, contigs, B: int, pad: int, has_n: bool, n: int = 3):
+    """`n` batches of B - 1 reads of pad/2 .. pad bases cut from
+    `contigs`, a few N in every third when `has_n`, and a padding row,
+    packed as the streams pack them and pinned, as the streams hand them
+    to a graph set."""
+    out = []
+    for _ in range(n):
+        rows = []
+        for r in range(B - 1):
+            ln = int(rng.integers(pad // 2, pad + 1))
+            c = contigs[r % len(contigs)]
+            st = int(rng.integers(0, len(c) - ln))
+            read = c[st : st + ln].copy()
+            if has_n and r % 3 == 0:
+                read[rng.integers(0, ln, 3)] = 4
+            rows.append(read)
+        lengths = np.zeros(B, np.int32)
+        lengths[: len(rows)] = [len(c) for c in rows]
+        packed, nmask = pack_batch(rows, B, pad, has_n)
+        p, ln, nm = pinned(torch.device("cuda"), packed, lengths, nmask)
+        out.append(dict(packed=p, lengths=ln, nmask=nm))
+    return out
+
+
+def phase_graphs(dev, check: GraphCheck) -> dict:
+    """Phase 15: the step graphs. Every key that the flows above replayed
+    was held against the eager step as its phase ended (`GraphCheck`);
+    here each cell of the grid (the sketch step and the mapping step's
+    four payload kinds, at phase 1's pads, with and without N) that no
+    flow replayed is made: a graph set of its own, at the batch height of
+    the flows' batches of bases, runs the step eagerly on one batch,
+    captures and replays it on a second and replays it on a third; every
+    payload must equal the eager step's on its own batch, byte for byte,
+    and the kernel is counted once per batch."""
+    t0 = time.perf_counter()
+    missing = [c for c in GRAPH_CELLS if c not in check.cells]
+    rng = np.random.default_rng(SEED + 15)
+    k, w = 32, 100
+    size = CONTIG_PAD + 100_000
+    contigs = [rng.integers(0, 4, size).astype(np.uint8) for _ in range(3)]
+    index = ContigIndex.from_sketches(
+        (name, mins) for name, _, mins in sketch_mod.sketch_sequences(
+            ((f"c{i}", c) for i, c in enumerate(contigs)), k, w, threads=3))
+    didx = mapping_step.DeviceIndex.from_contig_index(index, dev)
+    clen = torch.full((3,), size, dtype=torch.int32, device=dev)
+    map_bases = cli.parse(PAIR_ARGV)[1].batch_bases
+    sketcher = TorchSketcher("cpu")
+    launches0 = sketch_cuda.launches
+    for kind, pad, has_n in missing:
+        if kind == "sketch":
+            step = mapping_step.sketch_step
+            B = batch_rows(pad, sketcher.batch_bases)
+            static = dict(k=k, w=w, L=pad,
+                          max_mins=sketcher._slots_for(pad, w))
+        else:
+            step = mapping_step.mapping_step
+            B = batch_rows(pad, map_bases)
+            static = dict(
+                index=didx, k=k, w=w, L=pad,
+                slots=TorchMapper._slots_for(types.SimpleNamespace(w=w), pad),
+                clen=clen if kind in ("anchors", "runs-only") else None,
+                z=1000, runs=kind == "runs-only",
+                with_hashes=kind == "hash planes")
+        g = step_graph.StepGraphs(dev)
+        launches = sketch_cuda.launches
+        held = [(b, *copy_back(g.run(step, b, static)))
+                for b in graph_batches(rng, contigs, B, pad, has_n)]
+        if sketch_cuda.launches - launches != len(held) \
+                or (g.captures, g.replays) != (1, len(held) - 1):
+            fail(f"phase 15: {(kind, pad, has_n)}: "
+                 f"{sketch_cuda.launches - launches} launches, "
+                 f"{g.captures} captures, {g.replays} replays for "
+                 f"{len(held)} batches")
+        for batch, host, event in held:
+            event.synchronize()
+            eager = step(**{n: None if t is None else t.to(dev)
+                            for n, t in batch.items()}, **static).cpu()
+            if not torch.equal(eager, host):
+                fail(f"phase 15: {(kind, pad, has_n)}: a payload differs "
+                     f"from the eager step's")
+        if int(held[-1][1][:B].sum()) == 0:
+            fail(f"phase 15: {(kind, pad, has_n)}: the step found nothing")
+        log(f"phase 15: {kind}, pad {pad}{', N' if has_n else ''}: "
+            f"B={B}, first batch eager, second captured in "
+            f"{g.capture_seconds:.3f} s and replayed, third replayed: each "
+            f"equal to the eager step")
+    sketch_cuda.launches = launches0
+    from_flows = [c for c in GRAPH_CELLS if c in check.cells]
+    log(f"phase 15: {len(GRAPH_CELLS)} cells of (kind, pad, N): "
+        f"{len(from_flows)} replayed in the flows above "
+        f"({sum(check.cells.values())} keys there, over "
+        f"{len(check.cells)} cells in all), {len(missing)} made here; "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("phase 15: keys held in the flows by cell: " + ", ".join(
+        f"{kind}/{pad}{'N' if n else ''}: {c}"
+        for (kind, pad, n), c in sorted(check.cells.items())))
+    return {"cells_from_flows": len(from_flows), "cells_made": len(missing),
+            "flow_keys": sum(check.cells.values())}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
@@ -1988,27 +2253,40 @@ def run_phases() -> list:
     process of the run is left."""
     t0 = time.perf_counter()
     dev = torch.device("cuda", 0)
-    with clock("0"):
-        smi = phase_environment()
-    with clock("1"):
-        kern = phase_kernel(dev)
-    with clock("1b"):
-        probe = phase_probe(dev)
-    with clock("2-4"):
-        counts = phase_slice(dev)
-    with clock("5"):
-        rounds = phase_rounds(dev)
-    with clock("6"):
-        kbench = phase_bench(dev)
-    with clock("7-10, 12"):
-        new_paths = phase_new_paths(dev)
-    with clock("11"):
-        entry = phase_bench_entry(dev, smi)
-    with clock("13"):
-        human = phase_scale(dev, smi)
-    with clock("14"), tempfile.TemporaryDirectory(
-            prefix="ntlink_smoke_") as root:
-        behaviours = phase_behaviours(dev, root)
+    check = GraphCheck()
+    check.install()
+    try:
+        with clock("0"):
+            smi = phase_environment()
+        with clock("1"):
+            kern = phase_kernel(dev)
+        with clock("1b"):
+            probe = phase_probe(dev)
+        with clock("2-4"):
+            counts = phase_slice(dev)
+            check.verify("2-4")
+        with clock("5"):
+            rounds = phase_rounds(dev)
+            check.verify("5")
+        with clock("6"):
+            kbench = phase_bench(dev)
+        with clock("7-10, 12"):
+            new_paths = phase_new_paths(dev)
+            check.verify("7-10, 12")
+        with clock("11"):
+            entry = phase_bench_entry(dev, smi)
+            check.verify("11")
+        with clock("13"):
+            human = phase_scale(dev, smi)
+            check.verify("13")
+        with clock("14"), tempfile.TemporaryDirectory(
+                prefix="ntlink_smoke_") as root:
+            behaviours = phase_behaviours(dev, root)
+            check.verify("14")
+        with clock("15"):
+            graphs = phase_graphs(dev, check)
+    finally:
+        check.uninstall()
     PHASE_SECONDS["total"] = round(time.perf_counter() - t0, 1)
     counts["launches_by_path"]["5 run_rounds_gaps"] = rounds["launches"]
     counts["launches_by_path"]["6 kernel bench"] = kbench["sketch_rows"]
@@ -2026,6 +2304,7 @@ def run_phases() -> list:
         **counts,
         **kern,
         **human,
+        "step_graphs": graphs,
     }, {
         "name": "alu_peak",
         "route": "cuda",

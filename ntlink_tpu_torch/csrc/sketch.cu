@@ -63,6 +63,7 @@
 //     the window before its segment instead of reading another block's
 //     output: blocks run in no order.
 #include <cstdint>
+#include <mutex>
 #include <cuda_runtime.h>
 
 namespace {
@@ -443,6 +444,35 @@ uint64_t srol_pow(uint64_t x, int d) {
   return (hi << 33) | lo;
 }
 
+// The kernel's dynamic shared-memory limit (and its carveout) is a
+// function attribute of the current device. It is raised to the largest
+// launch seen on that device and never lowered, once per new maximum, not
+// set on every launch: a launch inside a CUDA graph capture then makes no
+// attribute call (the step graphs of ntlink_tpu_torch/step_graph.py run
+// each shape eagerly before they capture it), and a smaller launch on
+// another thread cannot lower the limit under a larger one.
+constexpr int kMaxDevices = 64;
+std::mutex g_smem_mu;
+size_t g_smem_allowed[kMaxDevices] = {};
+
+cudaError_t allow_smem(size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> lock(g_smem_mu);
+  if (g_smem_allowed[dev] >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(sketch_rows_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(sketch_rows_kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) g_smem_allowed[dev] = smem;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -470,9 +500,7 @@ void ntl_sketch_tables(int k, unsigned long long* out) {
 int ntl_sketch_blocks_per_sm(int L, int k, int w) {
   const Launch p = plan(L, k, w);
   if (p.threads == 0) return -static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      sketch_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
+  cudaError_t err = allow_smem(p.smem);
   int blocks = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -497,13 +525,7 @@ int ntl_sketch_rows(const void* codes, const void* lengths,
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * p.tiles > 0x7FFFFFFFLL)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      sketch_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(p.smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(sketch_rows_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             cudaSharedmemCarveoutMaxShared);
+  const cudaError_t err = allow_smem(p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   sketch_rows_kernel<<<B * p.tiles, p.threads, p.smem,
                        static_cast<cudaStream_t>(stream)>>>(

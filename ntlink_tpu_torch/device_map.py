@@ -4,7 +4,11 @@ Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper``. Reads stream into (pa
 (B, pad/4) batches, N-containing reads with a 1-bit mask of their non-ACGT
 bases (``stream_pipeline.split_n_rows``); one `mapping_step.mapping_step`
 per batch sketches them (the Hopper kernel on a CUDA device), joins the
-minimizers against the contig table and compacts the matched anchors.
+minimizers against the contig table and compacts the matched anchors. On
+a CUDA device each replica dispatches a batch as one CUDA graph replay of
+that step, captured once per static key (``step_graph``, the counterpart
+of ``DeviceMapper``'s jitted `_single_device_step`); on the CPU, under a
+device profile and on the hash-sharded table the step runs eagerly.
 
 Three payloads, with ``DeviceMapper``'s gates:
 
@@ -33,7 +37,8 @@ holds its own `DeviceIndex` and contig lengths, a batch's rows split into
 contiguous blocks, each device runs `mapping_step` on its block on a
 stream of its own (``mesh.make_sharded_mapping_step``'s data axis), and the
 blocks' payloads are read back in row order, so every read's payload is
-the one-device payload. `index_sharding="hash"` shards the table instead
+the one-device payload. Each replica has its own graphs.
+`index_sharding="hash"` shards the table instead
 over a (data, idx) grid (`parallel.sharded_index`); it chains on the host,
 and with one device it runs replicated, as ``DeviceMapper`` does.
 
@@ -50,6 +55,8 @@ whole payload, so its `d2h` is that payload's size. ``NTLINK_TIMING=1``
 adds the per-phase split of the hot loop (`last_timing`, and a
 ``# ntlink timing:`` line on stderr when the stream closes), and
 ``NTLINK_PIPE_DEPTH`` sets the batches in flight (default `DEPTH`).
+With graphs, `h2d_s` is the copy into pinned memory alone: the upload's
+enqueue is in `dispatch`, with the replay.
 """
 from __future__ import annotations
 
@@ -63,6 +70,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
+from . import step_graph
 from .chain import CHAIN_MAX_CONTIGS, RUN_LANES
 from .index import ContigIndex
 from .mapping import AnchorHit
@@ -101,8 +109,10 @@ def default_idx_shards(n_devices: int) -> int:
 
 class Replica:
     """One device's share of the replicated layout: its index and contig
-    lengths, and on a CUDA device that is one of several the stream its
-    batches run on."""
+    lengths, on a CUDA device that is one of several the stream its
+    batches run on, and the graphs of its steps (`graphs`: a
+    ``step_graph.StepGraphs``, None where the step runs eagerly; a test may
+    put a stand-in there)."""
 
     def __init__(self, device: torch.device, didx: DeviceIndex, clen,
                  own_stream: bool):
@@ -115,6 +125,7 @@ class Replica:
         )
         #: sketch kernel launches on this replica
         self.launches = 0
+        self.graphs = step_graph.for_device(device)
 
     def work(self):
         """Context in which this replica's device calls run."""
@@ -261,6 +272,12 @@ class TorchMapper:
         return (f"index replicated on {self.n_devices} devices "
                 f"{[str(d) for d in self.devices]}")
 
+    def graph_counts(self):
+        """(captures, replays, capture seconds, first batches run
+        eagerly) of every replica's step graphs so far; None where every
+        step runs eagerly."""
+        return step_graph.counts(rep.graphs for rep in self._replicas)
+
     def launches_by_device(self) -> List[int]:
         """Sketch kernel launches of each replica (replicated layout), or
         of the whole grid in one entry (hash-sharded: every cell launches
@@ -391,6 +408,7 @@ class TorchMapper:
         `runs_only` (n, runs) where runs is chain.c's (n, 8) int32 run
         rows."""
         launches0 = sketch_cuda.launches
+        graphs0 = self.graph_counts()
         reads0 = self.device_reads + self.host_fallbacks
         t0 = time.perf_counter()
         # per-phase accounting of the hot loop: producer thread reader_pull,
@@ -464,17 +482,28 @@ class TorchMapper:
                         continue  # no row, or padding rows alone
                     with rep.work():
                         launches = sketch_cuda.launches
+                        # a graph set takes the host tensors and copies
+                        # them into its static inputs itself
                         p, ln, nm = upload(
-                            to_device, rep.device, packed[lo:hi],
-                            lengths[lo:hi],
+                            to_device if rep.graphs is None else pinned,
+                            rep.device, packed[lo:hi], lengths[lo:hi],
                             None if nmask is None else nmask[lo:hi])
                         ts = timer.now()
-                        out = mapping_step(
-                            p, ln, rep.didx, self.k, self.w, pad, slots,
-                            nmask=nm, clen=rep.clen, z=self._chain_z,
-                            runs=self.runs_only,
-                            with_hashes=self.with_hashes,
-                        )
+                        if rep.graphs is None:
+                            out = mapping_step(
+                                p, ln, rep.didx, self.k, self.w, pad, slots,
+                                nmask=nm, clen=rep.clen, z=self._chain_z,
+                                runs=self.runs_only,
+                                with_hashes=self.with_hashes,
+                            )
+                        else:
+                            out = rep.graphs.run(
+                                mapping_step,
+                                dict(packed=p, lengths=ln, nmask=nm),
+                                dict(index=rep.didx, k=self.k, w=self.w,
+                                     L=pad, slots=slots, clen=rep.clen,
+                                     z=self._chain_z, runs=self.runs_only,
+                                     with_hashes=self.with_hashes))
                         timer.mark("dispatch", ts)
                         rep.launches += sketch_cuda.launches - launches
                         blocks.append((*download(out), lo, hi))
@@ -638,7 +667,8 @@ class TorchMapper:
                 f"on the device, batches by (pad, has N) "
                 f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
                 f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
-                f"run-lane overflow)",
+                f"run-lane overflow); "
+                f"{step_graph.summary(self.graph_counts(), graphs0)}",
                 file=sys.stderr,
             )
 
@@ -678,9 +708,11 @@ def pinned(device: torch.device, *arrays):
 def copy_back(out: torch.Tensor):
     """Start the copy of a step's payload to the host: (host tensor, CUDA
     event marking the copy's end, or None on the CPU). The drainer waits
-    on the event before it reads the host tensor."""
+    on the event before it reads the host tensor. A graph's payload is its
+    static output, which the next replay overwrites, so on the CPU too the
+    payload is copied."""
     if out.device.type != "cuda":
-        return out, None
+        return out.clone(), None
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     host.copy_(out, non_blocking=True)
     event = torch.cuda.Event()

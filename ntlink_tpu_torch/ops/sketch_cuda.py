@@ -5,17 +5,25 @@ device and runs the plain version (`sketch_torch.sketch_rows_ref`) for
 tensors on the CPU. There is no fallback between the two: a CUDA tensor
 either launches the kernel or raises. The kernel is built with nvcc on the
 first CUDA call (`ops.build`), never at import.
+
+A launch may be captured into a CUDA graph (``step_graph``): everything
+that a first call does once (the build, the seeds table's upload, the
+kernel's shared-memory limit) happens on an eager call of the same shape
+before the capture, and a launch under capture is recorded, not counted:
+each replay of the graph counts it (`count_launch`, `count_replay`).
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from .sketch_torch import sketch_rows_ref
 
-#: kernel launches so far; a caller that wants to show that a run went
-#: through the kernel sets it to 0 before the run and reads it after
+#: kernel launches so far, a graph's replayed ones included; a caller that
+#: wants to show that a run went through the kernel sets it to 0 before
+#: the run and reads it after
 launches = 0
 
 #: columns of a row that one block of the kernel owns (kMaxSeg in
@@ -28,6 +36,29 @@ PHASES = ("tables+bases", "hash", "can copy+group scans", "window combine",
 
 _lib = None
 _tables: dict = {}
+_recorded = threading.local()
+
+
+def count_launch(recorded: bool) -> None:
+    """Count one launch of the kernel; when `recorded` (the calling thread
+    is capturing a CUDA graph, so the launch runs nothing now) keep it for
+    the graph instead: each replay counts it (`count_replay`)."""
+    global launches
+    if recorded:
+        _recorded.n = recorded_launches() + 1
+    else:
+        launches += 1
+
+
+def recorded_launches() -> int:
+    """Launches the calling thread has recorded into graph captures so far."""
+    return getattr(_recorded, "n", 0)
+
+
+def count_replay(n: int) -> None:
+    """Count the `n` kernel launches of a graph that was replayed."""
+    global launches
+    launches += n
 
 
 def _library():
@@ -50,7 +81,8 @@ def _library():
 
 def _rotated_seeds(k: int, dev: torch.device) -> torch.Tensor:
     """The kernel's (8 + 4k, 2) table of rotated ntHash2 seeds for `k` on
-    `dev`, made once per (k, device)."""
+    `dev`, made once per (k, device) by a pageable upload, which a graph
+    capture would refuse: the eager call before a capture makes it."""
     key = (k, dev)
     if key not in _tables:
         host = torch.empty((8 + 4 * k, 2), dtype=torch.int64)
@@ -94,7 +126,6 @@ def sketch_rows(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     `sketch_torch.sketch_rows_ref`, on the device of `codes`. With `phases`
     (len(PHASES) zeroed int64 counters on the card) thread 0 of every block
     adds the clocks it spent in each phase of the kernel."""
-    global launches
     _check(codes, lengths, k, w)
     if codes.device.type == "cpu":
         return sketch_rows_ref(codes, lengths, k, w)
@@ -102,7 +133,10 @@ def sketch_rows(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
         raise ValueError(f"no sketch kernel for device {codes.device}")
     B, L = codes.shape
     if codes.data_ptr() % 16:
-        codes = codes.clone()  # the kernel loads 16 bytes at a time
+        # the kernel loads 16 bytes at a time; under a graph capture the
+        # copy is a node of the graph, its buffer allocated once from the
+        # graph's pool, so a replay allocates nothing
+        codes = codes.clone()
     fn = _library().ntl_sketch_rows
     NW = max(L - k - w + 2, 0)
     dev = codes.device
@@ -113,6 +147,7 @@ def sketch_rows(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
     with torch.cuda.device(dev):
         tables = _rotated_seeds(k, dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        recorded = torch.cuda.is_current_stream_capturing()
         err = fn(
             codes.data_ptr(), lengths.data_ptr(), tables.data_ptr(),
             can.data_ptr(), fwd.data_ptr(), winner.data_ptr(),
@@ -127,5 +162,5 @@ def sketch_rows(codes: torch.Tensor, lengths: torch.Tensor, k: int, w: int,
             f"sketch kernel launch failed: CUDA error {err} "
             f"(B={B} L={L} k={k} w={w})"
         )
-    launches += 1
+    count_launch(recorded)
     return can, fwd, winner, emit

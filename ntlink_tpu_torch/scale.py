@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from . import mapping_step, pipeline
+from . import mapping_step, pipeline, step_graph
 from .config import ScaffoldConfig
 from .device_map import TorchMapper
 from .host_map import HostMapper
@@ -261,6 +261,8 @@ def sketch_target(target: str, backend: str = None, device=None,
         "seconds": secs,
         "stream_seconds": sk.stream_seconds,
         "launches": sketch_cuda.launches - launches0,
+        "step_graphs": step_graph.counts(
+            [getattr(sk, "device_backend", sk).graphs]),
         "device_rows": sk.device_rows, "chunked": sk.chunked,
         "host_fallbacks": sk.host_fallbacks,
         "batches_by_pad": {f"{L}{'N' if n else ''}": c for (L, n), c
@@ -382,6 +384,7 @@ def bounded_run(d: str, n_reads: int = BOUNDED_READS, device=None,
         "reads_per_s": n_mapped / map_s, "mbase_per_s": bases / map_s / 1e6,
         "host_fallbacks": mapper.host_fallbacks,
         "launches": mapper.kernel_launches,
+        "step_graphs": mapper.graph_counts(),
         "peak_device_mib": (torch.cuda.max_memory_allocated(dev) / 2**20
                             if cuda else None),
         "peak_rss_gib": peak_rss_gib(),

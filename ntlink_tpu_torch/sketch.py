@@ -7,7 +7,10 @@ sketch TSV); the host half of ``ntlink_tpu/sketch.py`` (the host backend,
 the hybrid paths and the TSV dialects) is here too. Sequences stream into (pad, has_n) buckets
 of ~16 M bases; one `mapping_step.sketch_step` per batch sketches them (the
 Hopper kernel on a CUDA device; N rows take their windows again over the
-valid k-mers) and ships only the minimizers.
+valid k-mers) and ships only the minimizers. On a CUDA device a batch is
+one CUDA graph replay of that step, captured once per static key
+(``step_graph``, the counterpart of ``JaxSketcher``'s jitted step); on the
+CPU and under a device profile the step runs eagerly.
 
 Sequences longer than MAX_PAD split into window-aligned chunks: chunk c
 computes windows [c*S, (c+1)*S) of the whole sequence, S = MAX_PAD -
@@ -35,7 +38,10 @@ from typing import Dict, Iterable, Iterator, List, Tuple
 import numpy as np
 
 from . import device as device_mod
-from .device_map import TorchMapper, batch_rows, copy_back, pack_batch, to_device
+from . import step_graph
+from .device_map import (
+    TorchMapper, batch_rows, copy_back, pack_batch, pinned, to_device,
+)
 from .hybrid_map import HybridStream
 from .mapping_step import sketch_step
 from .native import fastx_module, sketch_module
@@ -204,6 +210,9 @@ class TorchSketcher:
         self.kernel_launches = 0
         #: wall seconds of every stream so far
         self.stream_seconds = 0.0
+        #: the graphs of its steps (``step_graph.StepGraphs``), None where
+        #: the step runs eagerly; a test may put a stand-in here
+        self.graphs = step_graph.for_device(self.device)
 
     def _slots_for(self, L: int, w: int) -> int:
         want = int(2.5 * L / (w + 1)) + 64
@@ -223,6 +232,7 @@ class TorchSketcher:
     ) -> Iterator[Tuple[str, int, Minimizers]]:
         """Yield (name, length, Minimizers) in input order."""
         launches0 = sketch_cuda.launches
+        graphs0 = step_graph.counts([self.graphs])
         fallbacks0 = self.host_fallbacks
         n_seqs = 0
         t0 = time.perf_counter()
@@ -249,8 +259,15 @@ class TorchSketcher:
         def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
             pad = key[0]
             slots = self._slots_for(pad, w)
-            p, ln, nm = to_device(self.device, packed, lengths, nmask)
-            out = sketch_step(p, ln, k, w, pad, slots, nmask=nm)
+            if self.graphs is None:
+                p, ln, nm = to_device(self.device, packed, lengths, nmask)
+                out = sketch_step(p, ln, k, w, pad, slots, nmask=nm)
+            else:
+                # the graph set copies the host tensors into its inputs
+                p, ln, nm = pinned(self.device, packed, lengths, nmask)
+                out = self.graphs.run(
+                    sketch_step, dict(packed=p, lengths=ln, nmask=nm),
+                    dict(k=k, w=w, L=pad, max_mins=slots))
             # counted once the step is issued: a batch whose step raised
             # launched no kernel
             self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
@@ -398,6 +415,8 @@ class TorchSketcher:
             secs = time.perf_counter() - t0
             self.stream_seconds += secs
             self.kernel_launches += sketch_cuda.launches - launches0
+            graphs = step_graph.summary(step_graph.counts([self.graphs]),
+                                        graphs0)
             print(
                 f"# ntlink_tpu_torch sketch ({self.device}): {n_seqs} "
                 f"sequence(s) in {secs:.3f} s; "
@@ -407,7 +426,7 @@ class TorchSketcher:
                 f"N) {self.batches_by_pad}; "
                 f"{self.host_fallbacks - fallbacks0} row(s) of this stream "
                 f"on the exact host path (sub-k, oversized with N, or "
-                f"slot overflow)",
+                f"slot overflow); {graphs}",
                 file=sys.stderr,
             )
 

@@ -13,6 +13,13 @@ in the JAX package). The steps' `torch.profiler.record_function` ranges
 (`mapping_step`, `chain`) name the device work by stage there. A profile
 that was asked for and cannot start or be written is an error, not a
 silent skip.
+
+A replayed CUDA graph records none of those ranges, so while a profile
+may be taken (`profiling`: NTLINK_TORCH_PROFILE, or a profile directory on
+`GLOBAL`) the mapping and sketch steps run eagerly, as on the CPU, and
+`stage_device_times` reads the split by stage; otherwise a CUDA device
+replays one graph per batch (``step_graph``). A profile of replays (the
+bench's busy share) still holds every kernel and copy, outside any range.
 """
 from __future__ import annotations
 
@@ -123,6 +130,15 @@ class Tracer:
 
 #: process-wide tracer; pipeline stages use this unless given another
 GLOBAL = Tracer(enabled=False)
+
+
+def profiling() -> bool:
+    """Whether a device profile may be taken in this process: a profile
+    directory on `GLOBAL` (NTLINK_TORCH_PROFILE at import, `enable`) or
+    NTLINK_TORCH_PROFILE set since. The device steps then run eagerly
+    (``step_graph.for_device``)."""
+    return bool(GLOBAL.torch_profile_dir
+                or os.environ.get("NTLINK_TORCH_PROFILE"))
 
 
 def enable(torch_profile_dir: Optional[str] = None) -> Tracer:

@@ -50,6 +50,51 @@ def write_dataset(d, seed=11, n_reads=150, read_len=(3000, 20_000)):
             fh.write(f">{name}\n{seq}\n")
 
 
+def write_rounds_dataset(d, seed=8, n_contigs=60, n_reads=120, err=0.12):
+    """A draft that a second and a third round still join: a random genome
+    cut into `n_contigs` contigs alternating 8-20 kb and 1-2 kb, with 500 b
+    gaps between them, written to target.fa in shuffled order and
+    orientation; `n_reads` reads of 8-30 kb sampled across the genome with
+    `err` substitutions, half reverse-complemented, in reads.fa. The short
+    contigs and the noisy reads leave joins for later rounds: on seed 8
+    ``ntlink_tpu`` backend=numpy leaves 27 scaffolds after round 1, 23
+    after round 2 and 22 after round 3 (k=32, w=100, z=1000)."""
+    rng = np.random.default_rng(seed)
+    comp = str.maketrans("ACGT", "TGCA")
+    pieces, contigs = [], []
+    for i in range(n_contigs):
+        n = int(rng.integers(8000, 20_001) if i % 2 == 0
+                else rng.integers(1000, 2001))
+        seq = "".join(BASES[rng.integers(0, 4, n)])
+        contigs.append(seq)
+        pieces.append(seq)
+        pieces.append("".join(BASES[rng.integers(0, 4, 500)]))
+    genome = "".join(pieces)
+    order = rng.permutation(n_contigs)
+    flip = rng.random(n_contigs) < 0.5
+    reads = []
+    for r in range(n_reads):
+        n = int(rng.integers(8000, 30_001))
+        start = int(rng.integers(0, len(genome) - n))
+        arr = np.frombuffer(genome[start : start + n].encode(), np.uint8).copy()
+        pos = rng.integers(0, n, int(n * err))
+        arr[pos] = BASES[rng.integers(0, 4, len(pos))].astype("S1").view(
+            np.uint8
+        )
+        seq = arr.tobytes().decode()
+        if rng.random() < 0.5:
+            seq = seq.translate(comp)[::-1]
+        reads.append((f"r{r}", seq))
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "target.fa"), "w") as fh:
+        for i in order:
+            seq = contigs[i].translate(comp)[::-1] if flip[i] else contigs[i]
+            fh.write(f">contig{i}\n{seq}\n")
+    with open(os.path.join(d, "reads.fa"), "w") as fh:
+        for name, seq in reads:
+            fh.write(f">{name}\n{seq}\n")
+
+
 def split_reads(d, n=2):
     """Split `d`/reads.fa round-robin by record into reads1.fa .. reads<n>.fa
     (multi-process runs shard by read file); returns the names."""

@@ -208,3 +208,200 @@ def test_bounded_scale_run_on_the_card(tmp_path, monkeypatch, load4):
     assert out["sketch"]["chunked"] == 4 and out["sketch"]["launches"] > 0
     assert out["mapping"]["launches"] > 0
     assert out["mapping"]["peak_device_mib"] > 0
+
+
+GRAPH_KINDS = ("sketch", "no chain", "hash planes", "anchors", "runs-only")
+
+
+def _graph_call(kind, pad, has_n, B, seed, dev):
+    """One step of `kind` on three (B, pad) batches of reads cut from three
+    indexed contigs (with N when `has_n`): (step, [host batch dicts],
+    static arguments on `dev`)."""
+    from ntlink_tpu_torch import mapping_step as ms
+    from ntlink_tpu_torch.device_map import pack_batch, pinned
+    from ntlink_tpu_torch.index import ContigIndex
+    from ntlink_tpu_torch.ops import nthash_np
+
+    k, w = 32, 100
+    rng = np.random.default_rng(seed)
+    size = max(3 * pad, 60_000)
+    contigs = [rng.integers(0, 4, size).astype(np.uint8) for _ in range(3)]
+    batches = []
+    for _ in range(3):
+        rows = []
+        for r in range(B - 1):  # a padding row at the end
+            n = int(rng.integers(pad // 2, pad + 1))
+            s = int(rng.integers(0, size - n))
+            read = contigs[r % 3][s : s + n].copy()
+            if has_n and r % 3 == 0:
+                read[rng.integers(0, n, 4)] = 4
+            rows.append(read)
+        lengths = np.zeros(B, np.int32)
+        lengths[: len(rows)] = [len(c) for c in rows]
+        packed, nmask = pack_batch(rows, B, pad, has_n)
+        p, ln, nm = pinned(dev, packed, lengths, nmask)
+        batches.append(dict(packed=p, lengths=ln, nmask=nm))
+    if kind == "sketch":
+        return ms.sketch_step, batches, dict(k=k, w=w, L=pad, max_mins=1024)
+    index = ContigIndex.from_sketches(
+        (f"c{i}", nthash_np.sketch_codes(c, k, w))
+        for i, c in enumerate(contigs))
+    chain = kind in ("anchors", "runs-only")
+    static = dict(
+        index=ms.DeviceIndex.from_contig_index(index, dev), k=k, w=w, L=pad,
+        slots=1024, z=1000, runs=kind == "runs-only",
+        with_hashes=kind == "hash planes",
+        clen=torch.full((3,), size, dtype=torch.int32, device=dev)
+        if chain else None)
+    return ms.mapping_step, batches, static
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", GRAPH_KINDS)
+@pytest.mark.parametrize("pad,has_n", [(1024, True), (16384, False),
+                                       (16384, True), (1 << 21, False)])
+def test_step_graph_replays_equal_eager_on_card(kind, pad, has_n):
+    """A step graph captured on one batch and replayed on two others: each
+    payload equals the eager step's on its own batch, byte for byte, and
+    the kernel is counted once per batch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.device_map import copy_back
+    from ntlink_tpu_torch.step_graph import StepGraphs
+
+    dev = torch.device("cuda", 0)
+    B = 2 if pad == 1 << 21 else 8
+    step, batches, static = _graph_call(kind, pad, has_n, B, pad + B, dev)
+    g = StepGraphs(dev)
+    launches = sketch_cuda.launches
+    held = []
+    for batch in batches:
+        host, event = copy_back(g.run(step, batch, static))
+        held.append((host, event))
+    assert sketch_cuda.launches - launches == len(batches)
+    assert (g.captures, g.replays) == (1, len(batches) - 1)
+    for (host, event), batch in zip(held, batches):
+        event.synchronize()
+        inputs = {n: None if t is None else t.to(dev)
+                  for n, t in batch.items()}
+        want = step(**inputs, **static).cpu()
+        assert torch.equal(host, want)
+    assert int(held[-1][0][:B].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["prechained", "runs", "hashes", "sketch"])
+def test_streams_with_graphs_equal_eager_on_card(monkeypatch, kind):
+    """TorchMapper and TorchSketcher on the card replay their graphs; the
+    same streams under NTLINK_TORCH_PROFILE run the steps eagerly; every
+    payload is the same and the kernel launches equal device batches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.device_map import TorchMapper
+    from ntlink_tpu_torch.sketch import TorchSketcher
+
+    index, reads, k, w = _mapper_case()
+    reads = reads * 2
+    kw = {
+        "prechained": dict(prechain=(np.full(3, 120_000, np.int32), 1000)),
+        "runs": dict(prechain=(np.full(3, 120_000, np.int32), 1000),
+                     runs_only=True),
+        "hashes": dict(with_hashes=True),
+        "sketch": None,
+    }[kind]
+    outs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setenv("NTLINK_TORCH_PROFILE", "/nonexistent")
+        launches = sketch_cuda.launches
+        if kw is None:
+            s = TorchSketcher("cuda:0", batch_bases=262_144)
+            got = [(n, ln, m.hashes, m.positions, m.forward) for n, ln, m
+                   in s.sketch_stream(iter(reads), k, w)]
+            graphs, batches = s.graphs, sum(s.batches_by_pad.values())
+        else:
+            m = TorchMapper(index, k, w, batch_bases=262_144,
+                            device="cuda:0", **kw)
+            got = list(m.map_stream_raw(iter(reads)))
+            graphs = m._replicas[0].graphs
+            batches = sum(m.batches_by_pad.values())
+        assert sketch_cuda.launches - launches == batches
+        if eager:
+            assert graphs is None
+        else:
+            assert graphs.replays > 0
+            assert graphs.warm_ups + graphs.replays == batches
+        outs.append(got)
+    assert len(outs[0]) == len(outs[1]) == len(reads)
+    for a, b in zip(*outs):
+        assert a[:2] == b[:2]
+        if kw is None:
+            for x, y in zip(a[2:], b[2:]):
+                assert np.array_equal(x, y), a[0]
+            continue
+        assert (a[2] is None) == (b[2] is None), a[0]
+        if a[2] is not None:
+            for x, y in zip(a[2][1:], b[2][1:]):
+                assert np.array_equal(x, y), a[0]
+
+
+@pytest.mark.cuda
+def test_a_capture_that_fails_raises_on_card():
+    """A step that waits on the card cannot be captured: the capture
+    raises, nothing runs eagerly in its place, and the card works on."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.step_graph import StepGraphs
+
+    def syncing_step(packed, lengths, nmask):
+        return lengths * int(packed.sum().item())
+
+    dev = torch.device("cuda", 0)
+    g = StepGraphs(dev)
+    batch = dict(packed=torch.ones(4, 8, dtype=torch.uint8).pin_memory(),
+                 lengths=torch.ones(4, dtype=torch.int32).pin_memory(),
+                 nmask=None)
+    g.run(syncing_step, batch, {})  # the first batch runs eagerly
+    with pytest.raises(RuntimeError):
+        g.run(syncing_step, batch, {})
+    assert (g.warm_ups, g.captures) == (1, 0)
+    x = torch.arange(10, device=dev)
+    assert int(x.sum()) == 45
+
+
+@pytest.mark.cuda
+def test_a_graph_freed_during_another_capture_on_card():
+    """The garbage collector may free a finished stream's graph sets at any
+    allocation, even in the middle of another set's capture: the capture
+    goes on, and both sets' replays stay right."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.step_graph import StepGraphs
+
+    dev = torch.device("cuda", 0)
+
+    def batch(v):
+        return dict(packed=torch.full((4, 8), v, dtype=torch.uint8)
+                    .pin_memory(),
+                    lengths=torch.full((4,), v, dtype=torch.int32)
+                    .pin_memory(),
+                    nmask=None)
+
+    def doubling(packed, lengths, nmask):
+        return lengths * 2 + packed.sum(dim=1, dtype=torch.int32)
+
+    old = StepGraphs(dev)
+    for v in (1, 2):
+        old.run(doubling, batch(v), {})
+    held = [old]
+    del old
+
+    def dropping(packed, lengths, nmask):
+        if torch.cuda.is_current_stream_capturing():
+            held.clear()  # the old set's graph is destroyed here
+        return lengths * 3
+
+    g = StepGraphs(dev)
+    outs = [g.run(dropping, batch(v), {}).cpu() for v in (1, 5, 7)]
+    assert not held and (g.captures, g.replays) == (1, 2)
+    assert [o.tolist() for o in outs] == [[3] * 4, [15] * 4, [21] * 4]

@@ -19,7 +19,9 @@ from ntlink_tpu import pipeline as ref
 from ntlink_tpu.config import ScaffoldConfig
 from ntlink_tpu_torch import cli, pipeline
 
-from .synthetic import assert_same_tree, write_dataset
+from .synthetic import (
+    assert_same_tree, write_dataset, write_rounds_dataset,
+)
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -84,6 +86,39 @@ def test_run_rounds_matches_numpy_backend(tmp_path, monkeypatch, gap_fill):
     # round 2 consumed the lifted mapping of round 1: no second mapping
     assert f"{r1}.{KWZ}.verbose_mapping.tsv" in names
     assert len(pipeline.round_launches) == 2
+
+
+
+def _n_records(path):
+    with open(path) as fh:
+        return sum(line.startswith(">") for line in fh)
+
+
+@pytest.mark.parametrize("rounds", [2, 3])
+@pytest.mark.parametrize("gap_fill", [False, True])
+def test_later_rounds_that_join_match_numpy_backend(tmp_path, monkeypatch,
+                                                    gap_fill, rounds):
+    """`run_rounds` / `run_rounds_gaps` on a draft whose later rounds still
+    make joins (`write_rounds_dataset`): the lifted mapping of each round
+    feeds joins of the next, and the whole tree is the reference's."""
+    for side in ("torch", "numpy"):
+        write_rounds_dataset(tmp_path / side)
+    monkeypatch.chdir(tmp_path / "torch")
+    final = pipeline.run_rounds(_cfg(batch_bases=200_000), rounds,
+                                gap_fill=gap_fill, device="cpu")
+    monkeypatch.chdir(tmp_path / "numpy")
+    assert ref.run_rounds(_cfg(backend="numpy"), rounds,
+                          gap_fill=gap_fill) == final
+    suffix = "ntLink.gap_fill" if gap_fill else "ntLink"
+    outs = [f"target.fa.{KWZ}.{'ntLink.' * r}{suffix}.fa"
+            for r in range(rounds)]
+    assert final == f"target.fa.{KWZ}.{suffix}.{rounds}rounds.fa"
+    assert_same_tree(tmp_path / "torch", tmp_path / "numpy",
+                     [final] + outs + [f"{o}.agp" for o in outs])
+    # the reference's round 2 joined scaffolds that round 1 left apart
+    n1, n2 = (_n_records(tmp_path / "numpy" / o) for o in outs[:2])
+    assert n2 < n1
+    assert len(pipeline.round_launches) == rounds
 
 
 def _cli_both(tmp_path, capsys, argv):

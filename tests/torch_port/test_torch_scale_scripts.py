@@ -186,6 +186,20 @@ def test_probes_run_on_the_cpu(name, args):
         assert all("pairs=" in ln and "pairs=0" not in ln for ln in lines)
 
 
+def test_step_graph_probe_runs_on_the_cpu():
+    """scripts/probe_step_graphs_torch.py on the CPU: the timed runs and
+    the dispatch split; the steps run eagerly there, and a CPU run
+    reports no device number."""
+    res = _script("probe_step_graphs_torch.py", "--device", "cpu",
+                  "--reads", "80", "--contigs", "4", "--runs", "2")
+    out = _last_json(res.stdout)
+    assert len(out["reads_per_s"]) == 2 and out["batches_per_run"] >= 1
+    assert out["dispatch_ms_per_batch"] > 0
+    assert 0 < out["dispatch_share_of_stream"] <= 1
+    assert out["wire_stats"]["h2d"] > 0 and out["step_graphs"] is None
+    assert not any(k.startswith("device_") for k in out)
+
+
 @pytest.mark.parametrize("name,args", [
     ("stress_scale_torch.py", ["{tmp}", *PRESET]),
     ("stress_3g_bounded_torch.py", ["{tmp}"]),
@@ -193,6 +207,7 @@ def test_probes_run_on_the_cpu(name, args):
     ("probe_batch_torch.py", []),
     ("probe_step_torch.py", []),
     ("probe_hybrid_torch.py", []),
+    ("probe_step_graphs_torch.py", []),
 ])
 def test_scripts_exit_nonzero_without_a_card(tmp_path, name, args):
     if torch.cuda.is_available():
