@@ -39,8 +39,11 @@ NTLINK_GROUP_DIR, and `pair` over NTLINK_COORDINATOR (gloo, loopback) from
 a fresh copy of the package in which nothing is built, so that both ranks
 reach the first-use builds at once. Phase 8: the card named twice
 (``["cuda:0", "cuda:0"]``): two replicas, default and lean, then
-index_sharding=hash idx_shards=2, plain and with repeats=True on 2,000
-reads, and the dryruns of ``ntlink_tpu_torch.graft_entry``. Phase 9:
+index_sharding=hash idx_shards=2 (a 1 x 2 grid on one device: each batch
+one graph replay of the grid's step after its key's first), plain and with
+repeats=True on 2,000 reads, each failing unless it replayed graphs and
+launched the kernel once per batch and idx rank, and the dryruns of
+``ntlink_tpu_torch.graft_entry``. Phase 9:
 `scaffold gap_fill v=1` under NTLINK_TORCH_PROFILE: the span names in
 order, one Chrome trace per stage, and the `pair/map-reads` trace's device
 time by `record_function` range (under the profile the steps run
@@ -95,7 +98,8 @@ its capture batch is kept with that batch, and as the phase ends it must
 equal the eager step on it, byte for byte (its compare launches not
 counted); each flow's log line gives its captures, replays, capture
 seconds and first batches run eagerly. Phase 15 then makes each cell of
-the grid (the sketch step and the mapping step's four payload kinds, at
+the grid (the sketch step, the mapping step's four payload kinds and the
+hash-sharded step on the card named twice, plain and with hash planes, at
 phase 1's pads, with and without N) that no flow replayed so, at the
 flows' batch heights: eager on one batch, captured and replayed on the
 second, replayed on the third, each equal to the eager step.
@@ -139,6 +143,9 @@ from ntlink_tpu_torch.device_map import (
 from ntlink_tpu_torch.index import ContigIndex
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
 from ntlink_tpu_torch.native import build as native_build
+from ntlink_tpu_torch.parallel.sharded_index import (
+    ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
+)
 from ntlink_tpu_torch.ops import alu_peak_cuda, build, sketch_cuda, sketch_torch
 from ntlink_tpu_torch.ops.alu_peak_torch import WIDTHS, alu_peak_ref
 from ntlink_tpu_torch.seqio import stream_fastx
@@ -245,7 +252,8 @@ PHASE_SECONDS = {}
 # phase 15: the step graphs. The grid of keys whose replays must equal the
 # eager step: each step's payload kind at phase 1's pads, with and without
 # N, at the batch heights of the flows' batches of bases
-GRAPH_KINDS = ("sketch", "no chain", "hash planes", "anchors", "runs-only")
+GRAPH_KINDS = ("sketch", "no chain", "hash planes", "anchors", "runs-only",
+               "hash grid", "hash grid, hash planes")
 GRAPH_CELLS = [(kind, pad, has_n) for kind in GRAPH_KINDS for pad in PADS
                for has_n in (False, True)]
 
@@ -572,6 +580,11 @@ def make_dir(root: str, name: str, links) -> str:
 
 def graph_kind(static: dict) -> str:
     """The payload kind of a step call, from its static arguments."""
+    if "grid" in static:  # a device's step of the hash-sharded grid
+        if static["finish"] == "rows":
+            return "hash join"
+        return "hash grid" + (", hash planes" if static["with_hashes"]
+                              else "")
     if "max_mins" in static:
         return "sketch"
     if static["runs"]:
@@ -586,8 +599,10 @@ class GraphCheck:
     was captured on, in this process, against the eager step. While
     installed, `StepGraphs.run` keeps, at that replay of each key of each
     graph set, the batch and a host copy of the replayed payload (copied
-    on the replay's stream); `verify`, called as each phase ends, runs the
-    eager step on that batch on the card and compares the bytes. Its launches are compare launches: the kernel's
+    on the replay's stream; a batch input on the card, as the hash grid's
+    first device takes from the others, is copied too); `verify`, called
+    as each phase ends, runs the eager step on that batch on the card and
+    compares the bytes. Its launches are compare launches: the kernel's
     count is put back after them."""
 
     def __init__(self):
@@ -609,8 +624,10 @@ class GraphCheck:
                 key = graphs.key(step, batch, static)
                 if key not in seen:
                     seen.add(key)
-                    check.pending.append(
-                        (graphs.device, step, batch, static, out.cpu()))
+                    held = {n: None if t is None else t.to("cpu", copy=True)
+                            for n, t in batch.items()}
+                    check.pending.append((graphs.device, step, held, static,
+                                          out.to("cpu", copy=True)))
             return out
 
         step_graph.StepGraphs.run = run
@@ -1096,6 +1113,26 @@ def phase_ranks(root: str, inputs, one_scaffold: str, one_pair: str,
     return by_path
 
 
+def hash_grid_graphs(mapper, launches: int, label: str) -> str:
+    """A hash-sharded run on the card named twice (a 1 x 2 grid on one
+    device) must have replayed its grid's step graphs, one step a batch
+    (the first of each key eager, every other a replay), and launched the
+    sketch kernel once per batch and idx rank. Returns the graphs'
+    summary."""
+    counts = mapper.graph_counts()
+    batches = sum(mapper.batches_by_pad.values())
+    summary = step_graph.summary(counts)
+    if counts is None or counts[1] == 0:
+        fail(f"{label}: the hash grid replayed no step graph ({summary})")
+    if counts[1] + counts[3] != batches:
+        fail(f"{label}: {counts[1]} replays and {counts[3]} first batches "
+             f"eager for {batches} batches")
+    if launches != batches * mapper.idx_shards:
+        fail(f"{label}: {launches} sketch launches for {batches} batches "
+             f"x {mapper.idx_shards} idx ranks")
+    return summary
+
+
 def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
     """Phase 8: the card named twice. Every run maps on the contig sketch
     of the one-process run; the first, on the card named once, gives the
@@ -1130,6 +1167,10 @@ def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
         per_dev = mapper.launches_by_device()
         if sketch_cuda.launches == 0 or min(per_dev) == 0:
             fail(f"phase 8 ({name}): launches {per_dev}")
+        graphs = step_graph.summary(mapper.graph_counts())
+        if layout == "hash":
+            graphs = hash_grid_graphs(mapper, sketch_cuda.launches,
+                                      f"phase 8 ({name})")
         log(f"phase 8 ({name}): {mapper.layout()}; {n} reads in "
             f"{mapper.stream_seconds:.3f} s = "
             f"{n / mapper.stream_seconds:.1f} reads/s (one card shared, not "
@@ -1137,7 +1178,7 @@ def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
             f"runs_only={mapper.runs_only}); sketch kernel launches "
             f"{sketch_cuda.launches}, by replica {per_dev}; peak device "
             f"memory of the mapping {peak / 2**20:.1f} MiB (one device: "
-            f"{one_peak / 2**20:.1f} MiB)")
+            f"{one_peak / 2**20:.1f} MiB); {graphs}")
         same_bytes(f"phase 8 ({name})", one_pair, d,
                    [PREFIX + a for a in arts])
         by_path[f"8 {name}"] = sketch_cuda.launches
@@ -1154,8 +1195,10 @@ def phase_replicas(dev, root: str, data: str, one_pair: str) -> dict:
     if mapper.index_sharding != "hash" or not mapper.with_hashes \
             or sketch_cuda.launches == 0:
         fail(f"phase 8 (hash, repeats): ran {mapper.layout()}")
+    graphs = hash_grid_graphs(mapper, sketch_cuda.launches,
+                              "phase 8 (hash, repeats)")
     log(f"phase 8 (hash, repeats): {mapper.layout()}; "
-        f"{sketch_cuda.launches} sketch kernel launches")
+        f"{sketch_cuda.launches} sketch kernel launches; {graphs}")
     same_bytes("phase 8 (hash, repeats)", rep_one, rep_hash,
                [PREFIX + a for a in ARTIFACTS])
     by_path["8 hash, repeats"] = sketch_cuda.launches
@@ -2141,16 +2184,59 @@ def graph_batches(rng, contigs, B: int, pad: int, has_n: bool, n: int = 3):
     return out
 
 
+def hash_grid_cell(dev, rng, contigs, sidx, kind: str, pad: int,
+                   has_n: bool, B: int, slots: int) -> None:
+    """One hash-grid cell of phase 15: a hash-sharded step on the card
+    named twice (a 1 x 2 grid, both cells on one device: one graph set,
+    one replay a batch) takes three batches of one key; each payload,
+    copied back in the grid's stream as the read stream does, must equal
+    the same step's run eagerly (no graph set) on that batch."""
+    k, w = 32, 100
+    with_hashes = kind.endswith("hash planes")
+    make = lambda: make_sharded_index_mapping_step(  # noqa: E731
+        make_mesh_2d(len(TWO_CARDS), TWO_CARDS), sidx, k, w, pad, slots,
+        with_hashes=with_hashes)
+    step, eager = make(), make()
+    eager.graphs = [None] * len(eager.groups)
+    (g,) = step.graphs
+    origin = step.cells[0][0]
+    launches = sketch_cuda.launches
+    held = []
+    for b in graph_batches(rng, contigs, B, pad, has_n):
+        with origin.work():
+            held.append((b, *copy_back(step.flat(**b))))
+    label = f"phase 15: {(kind, pad, has_n)}"
+    if sketch_cuda.launches - launches != len(held) * len(TWO_CARDS) \
+            or (g.captures, g.replays) != (1, len(held) - 1):
+        fail(f"{label}: {sketch_cuda.launches - launches} launches, "
+             f"{g.captures} captures, {g.replays} replays for {len(held)} "
+             f"batches")
+    for batch, host, event in held:
+        event.synchronize()
+        want = eager(batch["packed"], batch["lengths"],
+                     nmask=batch["nmask"])["flat"].cpu()
+        if not torch.equal(want, host):
+            fail(f"{label}: a payload differs from the eager step's")
+    if int(held[-1][1][0, :B].sum()) == 0:
+        fail(f"{label}: the step found nothing")
+    log(f"{label}: B={B} on {TWO_CARDS}, first batch eager, second "
+        f"captured in {g.capture_seconds:.3f} s and replayed, third "
+        f"replayed: each equal to the eager step")
+
+
 def phase_graphs(dev, check: GraphCheck) -> dict:
     """Phase 15: the step graphs. Every key that the flows above replayed
     was held against the eager step as its phase ended (`GraphCheck`);
-    here each cell of the grid (the sketch step and the mapping step's
-    four payload kinds, at phase 1's pads, with and without N) that no
-    flow replayed is made: a graph set of its own, at the batch height of
-    the flows' batches of bases, runs the step eagerly on one batch,
-    captures and replays it on a second and replays it on a third; every
-    payload must equal the eager step's on its own batch, byte for byte,
-    and the kernel is counted once per batch."""
+    here each cell of the grid (the sketch step, the mapping step's four
+    payload kinds and the hash-sharded step on the card named twice,
+    plain and with hash planes, at phase 1's pads, with and without N)
+    that no flow replayed is made: a graph set of its own (for the hash
+    grid, a step of its own, whose one device has one set), at the batch
+    height of the flows' batches of bases, runs the step eagerly on one
+    batch, captures and replays it on a second and replays it on a third;
+    every payload must equal the eager step's on its own batch, byte for
+    byte, and the kernel is counted once per batch (per batch and idx rank
+    on the grid)."""
     t0 = time.perf_counter()
     missing = [c for c in GRAPH_CELLS if c not in check.cells]
     rng = np.random.default_rng(SEED + 15)
@@ -2161,11 +2247,17 @@ def phase_graphs(dev, check: GraphCheck) -> dict:
         (name, mins) for name, _, mins in sketch_mod.sketch_sequences(
             ((f"c{i}", c) for i, c in enumerate(contigs)), k, w, threads=3))
     didx = mapping_step.DeviceIndex.from_contig_index(index, dev)
+    sidx = ShardedDeviceIndex.from_contig_index(index, len(TWO_CARDS))
     clen = torch.full((3,), size, dtype=torch.int32, device=dev)
     map_bases = cli.parse(PAIR_ARGV)[1].batch_bases
     sketcher = TorchSketcher("cpu")
     launches0 = sketch_cuda.launches
     for kind, pad, has_n in missing:
+        slots = TorchMapper._slots_for(types.SimpleNamespace(w=w), pad)
+        if kind.startswith("hash grid"):
+            hash_grid_cell(dev, rng, contigs, sidx, kind, pad, has_n,
+                           batch_rows(pad, map_bases), slots)
+            continue
         if kind == "sketch":
             step = mapping_step.sketch_step
             B = batch_rows(pad, sketcher.batch_bases)
@@ -2175,8 +2267,7 @@ def phase_graphs(dev, check: GraphCheck) -> dict:
             step = mapping_step.mapping_step
             B = batch_rows(pad, map_bases)
             static = dict(
-                index=didx, k=k, w=w, L=pad,
-                slots=TorchMapper._slots_for(types.SimpleNamespace(w=w), pad),
+                index=didx, k=k, w=w, L=pad, slots=slots,
                 clen=clen if kind in ("anchors", "runs-only") else None,
                 z=1000, runs=kind == "runs-only",
                 with_hashes=kind == "hash planes")

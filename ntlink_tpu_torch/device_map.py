@@ -7,8 +7,9 @@ per batch sketches them (the Hopper kernel on a CUDA device), joins the
 minimizers against the contig table and compacts the matched anchors. On
 a CUDA device each replica dispatches a batch as one CUDA graph replay of
 that step, captured once per static key (``step_graph``, the counterpart
-of ``DeviceMapper``'s jitted `_single_device_step`); on the CPU, under a
-device profile and on the hash-sharded table the step runs eagerly.
+of ``DeviceMapper``'s jitted `_single_device_step`), and the hash-sharded
+table's grid one replay per device (one in all when its cells share one
+device); on the CPU and under a device profile the steps run eagerly.
 
 Three payloads, with ``DeviceMapper``'s gates:
 
@@ -44,12 +45,12 @@ and with one device it runs replicated, as ``DeviceMapper`` does.
 
 The stream accounts for itself as ``DeviceMapper``'s does. `wire_stats`
 counts, over every stream of the mapper, the bytes handed to the devices
-(`h2d`: each batch's packed codes, lengths and N mask, once per device
-that gets a copy) and brought back (`d2h`), and the seconds the feeder
-spent in the uploads' host side (`h2d_s`: the copy into pinned memory and
-the enqueue; the upload itself is asynchronous) and the drainer blocked on
-the payloads (`d2h_s`: that wait covers the batch's step on the device as
-well as the copy, since the copy is queued behind it). ``DeviceMapper``'s
+(`h2d`: each batch's packed codes, lengths and N mask, the rows each
+device gets, once per device) and brought back (`d2h`), and the seconds
+the feeder spent in the uploads' host side (`h2d_s`: the copy into pinned
+memory and the enqueue; the upload itself is asynchronous) and the drainer
+blocked on the payloads (`d2h_s`: that wait covers the batch's step on the
+device as well as the copy, since the copy is queued behind it). ``DeviceMapper``'s
 `d2h` counts its capped-transfer protocol; this mapper copies each batch's
 whole payload, so its `d2h` is that payload's size. ``NTLINK_TIMING=1``
 adds the per-phase split of the hot loop (`last_timing`, and a
@@ -70,7 +71,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from . import step_graph
+from . import step_graph, tracing
 from .chain import CHAIN_MAX_CONTIGS, RUN_LANES
 from .index import ContigIndex
 from .mapping import AnchorHit
@@ -202,6 +203,10 @@ class TorchMapper:
             self.didx = ShardedDeviceIndex.from_contig_index(
                 index, self.idx_shards)
             self._mesh2d = make_mesh_2d(self.idx_shards, self.devices)
+            #: whether the grids' steps replay graphs: decided when the
+            #: mapper is made, as a replica's are, though a grid is made at
+            #: its pad's first batch
+            self._hash_graphs = not tracing.profiling()
         else:
             self.idx_shards = 1
             t0 = time.perf_counter()
@@ -253,10 +258,13 @@ class TorchMapper:
     def _hash_step_for(self, L: int):
         """The hash-sharded mapping step for padded length L, made once."""
         if L not in self._hash_steps:
-            self._hash_steps[L] = make_sharded_index_mapping_step(
+            step = make_sharded_index_mapping_step(
                 self._mesh2d, self.didx, self.k, self.w, L,
                 self._slots_for(L), with_hashes=self.with_hashes,
             )
+            if not self._hash_graphs:
+                step.graphs = [None] * len(step.graphs)
+            self._hash_steps[L] = step
         return self._hash_steps[L]
 
     def layout(self) -> str:
@@ -274,9 +282,12 @@ class TorchMapper:
 
     def graph_counts(self):
         """(captures, replays, capture seconds, first batches run
-        eagerly) of every replica's step graphs so far; None where every
-        step runs eagerly."""
-        return step_graph.counts(rep.graphs for rep in self._replicas)
+        eagerly) of every replica's step graphs, or of every device's of
+        the hash-sharded grids, so far; None where every step runs
+        eagerly."""
+        return step_graph.counts(
+            [rep.graphs for rep in self._replicas]
+            + [g for step in self._hash_steps.values() for g in step.graphs])
 
     def launches_by_device(self) -> List[int]:
         """Sketch kernel launches of each replica (replicated layout), or
@@ -436,14 +447,16 @@ class TorchMapper:
                          row_codes))
             timer.mark("feed_enqueue_wait", ts)
 
-        def upload(put, device, packed, lengths, nmask, copies=1):
-            # feeder thread: one block's host copy and upload enqueue
+        def upload(put, device, packed, lengths, nmask, rows=None):
+            # feeder thread: one block's host copy and upload enqueue; the
+            # devices get `rows` of its rows in all (default: each once)
             tw = time.perf_counter()
             out = put(device, packed, lengths, nmask)
             dt = time.perf_counter() - tw
-            wire["h2d"] += copies * (
-                packed.nbytes + lengths.nbytes
-                + (0 if nmask is None else nmask.nbytes))
+            nbytes = (packed.nbytes + lengths.nbytes
+                      + (0 if nmask is None else nmask.nbytes))
+            wire["h2d"] += (nbytes if rows is None
+                            else nbytes * rows // len(lengths))
             wire["h2d_s"] += dt
             timer.add("h2d_put", dt)
             return out
@@ -466,14 +479,15 @@ class TorchMapper:
             if self.index_sharding == "hash":
                 step = self._hash_step_for(pad)
                 origin = step.cells[0][0]
-                # the step uploads each data row's block to every idx rank
+                # the step uploads each device's rows once (into its
+                # graph's static inputs, or eagerly)
                 p, ln, nm = upload(pinned, origin.device, packed, lengths,
-                                   nmask, copies=self.idx_shards)
+                                   nmask, rows=step.grid.upload_rows(B))
                 ts = timer.now()
-                out = step(p, ln, nmask=nm)
+                flat = step.flat(p, ln, nm)
                 timer.mark("dispatch", ts)
                 with origin.work():
-                    blocks.append((*download(out["flat"]), 0, B))
+                    blocks.append((*download(flat), 0, B))
             else:
                 n = self.n_devices
                 bounds = [B * d // n for d in range(n + 1)]

@@ -51,11 +51,20 @@ The sketch kernel's launch inside a capture is recorded, not counted
 graph (`sketch_cuda.count_replay`), so kernel launches still equal device
 batches.
 
+The hash-sharded step (``parallel/sharded_index.py``, the counterpart of
+``jax.jit`` at ``ntlink_tpu/parallel/sharded_index.py:318``, ``:323`` and
+``:344``) has a set per device of its grid, over that device's
+`sharded_index.group_step`: its key holds, besides the batch's shapes
+and N mask, the grid (its devices and cells), the batch height, k, w,
+L, slots, `with_hashes`, the payload's finish and the identity of the
+device's sub-tables and of the gpos offsets. The step forks each cell's
+stream from the capture stream and joins it back, so the cells' work is
+in the graph; on a grid of one device a batch is one replay.
+
 The steps run eagerly on the CPU and while a device profile may be taken
 (`for_device`): the ``record_function`` ranges by which a profile reads
 the step's stages (`tracing.stage_device_times`) are not recorded on
-replay. The hash-sharded step (``parallel/sharded_index.py``) runs
-eagerly too.
+replay.
 """
 from __future__ import annotations
 
@@ -123,13 +132,16 @@ class _Entry:
 
 def _ident(value, refs: list):
     """A static argument as it enters a key: a tensor or an index by the
-    identity of what it reads, anything else by value."""
+    identity of what it reads, a tuple by its items, anything else by
+    value (an object without its own equality, by its identity)."""
     if isinstance(value, DeviceIndex):
         refs += [value, value.t_bkt]
         return ("index", id(value.t_bkt), value.mask, value.max_probes)
     if isinstance(value, torch.Tensor):
         refs.append(value)
         return ("tensor", id(value))
+    if isinstance(value, tuple):
+        return tuple(_ident(v, refs) for v in value)
     return value
 
 

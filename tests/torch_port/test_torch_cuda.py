@@ -405,3 +405,88 @@ def test_a_graph_freed_during_another_capture_on_card():
     outs = [g.run(dropping, batch(v), {}).cpu() for v in (1, 5, 7)]
     assert not held and (g.captures, g.replays) == (1, 2)
     assert [o.tolist() for o in outs] == [[3] * 4, [15] * 4, [21] * 4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("repeats", [False, True])
+def test_hash_grid_stream_with_graphs_equals_eager_on_card(monkeypatch,
+                                                          repeats):
+    """``index_sharding=hash`` on the card named twice (a 1 x 2 grid on
+    one device) replays one graph per batch after each key's first; the
+    same stream under NTLINK_TORCH_PROFILE runs the grid's steps eagerly;
+    every payload is the same, and the kernel launches equal device
+    batches x idx ranks."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.device_map import TorchMapper
+
+    index, reads, k, w = _mapper_case()
+    reads = reads * 2
+    outs = []
+    for eager in (False, True):
+        if eager:
+            monkeypatch.setenv("NTLINK_TORCH_PROFILE", "/nonexistent")
+        launches = sketch_cuda.launches
+        m = TorchMapper(index, k, w, batch_bases=262_144,
+                        devices=["cuda:0", "cuda:0"], with_hashes=repeats,
+                        index_sharding="hash", idx_shards=2)
+        outs.append(list(m.map_stream_raw(iter(reads))))
+        batches = sum(m.batches_by_pad.values())
+        assert sketch_cuda.launches - launches == 2 * batches
+        counts = m.graph_counts()
+        if eager:
+            assert counts is None
+        else:
+            captures, replays, _, first = counts
+            assert captures > 0 and replays > 0
+            assert first + replays == batches
+            assert all(len(s.graphs) == 1 for s in m._hash_steps.values())
+    assert len(outs[0]) == len(outs[1]) == len(reads)
+    n_hits = 0
+    for a, b in zip(*outs):
+        assert a[:2] == b[:2]
+        assert (a[2] is None) == (b[2] is None), a[0]
+        if a[2] is not None:
+            n_hits += 1
+            for x, y in zip(a[2][1:], b[2][1:]):
+                assert np.array_equal(x, y), a[0]
+    assert n_hits > 30
+
+
+@pytest.mark.cuda
+def test_hash_grid_join_graphs_equal_eager_on_card(monkeypatch):
+    """`make_sharded_index_join` on the card named twice: its first call
+    runs the grid's step eagerly, the second captures it, the third
+    replays; each (count, anchors) equals the eager join's (under
+    NTLINK_TORCH_PROFILE) on the same codes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from ntlink_tpu_torch.parallel import sharded_index as si
+
+    index, reads, k, w = _mapper_case()
+    sidx = si.ShardedDeviceIndex.from_contig_index(index, 2)
+    grid = si.make_mesh_2d(2, ["cuda:0", "cuda:0"])
+    join = si.make_sharded_index_join(grid, sidx, k, w, max_anchors=512)
+    eager = si.make_sharded_index_join(grid, sidx, k, w, max_anchors=512)
+    long = [r for _, r in reads if len(r) == 3000]
+    for i in range(3):
+        codes = np.zeros((4, 4096), np.uint8)
+        lengths = np.zeros(4, np.int32)
+        for r in range(4):
+            read = long[(4 * i + r) % len(long)]
+            codes[r, : len(read)] = np.minimum(read, 3)
+            lengths[r] = len(read)
+        launches = sketch_cuda.launches
+        count, anchors = (t.cpu() for t in join(codes, lengths))
+        assert sketch_cuda.launches - launches == 2
+        # its grid is made at its first call, with no graph set there
+        monkeypatch.setenv("NTLINK_TORCH_PROFILE", "/nonexistent")
+        r_count, r_anchors = (t.cpu() for t in eager(codes, lengths))
+        monkeypatch.delenv("NTLINK_TORCH_PROFILE")
+        assert torch.equal(count, r_count) and int(count.sum()) > 0
+        assert torch.equal(anchors, r_anchors)
+    ((_, graphs),) = join.grids.values()
+    ((_, none),) = eager.grids.values()
+    assert none == [None]
+    assert (graphs[0].warm_ups, graphs[0].captures, graphs[0].replays) == (
+        1, 1, 2)

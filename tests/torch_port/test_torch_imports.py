@@ -19,7 +19,8 @@ SCRIPTS = ("chip_smoke.py", "ntLink_torch", "ntLink_rounds_torch") + tuple(
         "profile_pair_torch.py", "stress_3g_bounded_torch.py",
         "stress_scale_torch.py", "measure_scaling_torch.py",
         "probe_batch_torch.py", "probe_step_torch.py",
-        "probe_hybrid_torch.py", "layout_oracle_torch.py"))
+        "probe_hybrid_torch.py", "layout_oracle_torch.py",
+        "probe_step_graphs_torch.py", "smoke_phase8_torch.py"))
 FORBIDDEN = ("jax", "ntlink_tpu", "bench")
 
 

@@ -200,6 +200,18 @@ def test_step_graph_probe_runs_on_the_cpu():
     assert not any(k.startswith("device_") for k in out)
 
 
+def test_step_graph_probe_runs_the_hash_grid_on_the_cpu():
+    """The probe's hash grid: the device named twice, the table sharded
+    over a 1 x 2 grid, the steps eager on the CPU."""
+    res = _script("probe_step_graphs_torch.py", "--device", "cpu",
+                  "--reads", "80", "--contigs", "4", "--runs", "1",
+                  "--index-sharding", "hash", "--idx-shards", "2")
+    out = _last_json(res.stdout)
+    assert "hash-sharded over a 1 x 2 (data, idx) grid" in out["layout"]
+    assert out["batches_per_run"] >= 1 and out["dispatch_ms_per_batch"] > 0
+    assert out["wire_stats"]["h2d"] > 0 and out["step_graphs"] is None
+
+
 @pytest.mark.parametrize("name,args", [
     ("stress_scale_torch.py", ["{tmp}", *PRESET]),
     ("stress_3g_bounded_torch.py", ["{tmp}"]),
@@ -217,6 +229,16 @@ def test_scripts_exit_nonzero_without_a_card(tmp_path, name, args):
     assert res.returncode == 1
     assert "CUDA device" in res.stderr and "--device cpu" in res.stderr
     assert res.stdout == "" and os.listdir(tmp_path) == []
+
+
+def test_phase8_script_exits_1_without_a_card():
+    """scripts/smoke_phase8_torch.py runs the smoke's phase 8 on the card
+    only: without one it exits 1 before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible")
+    res = _script("smoke_phase8_torch.py", check=False)
+    assert res.returncode == 1
+    assert "CUDA device" in res.stderr and res.stdout == ""
 
 
 @pytest.mark.cuda

@@ -89,17 +89,20 @@ def test_timing_is_read_once_per_stream(monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("layout", ["one device", "two devices", "hash grid",
-                                    "runs only"])
+                                    "hash grid, one device", "runs only"])
 def test_wire_stats_count_the_batches_bytes(layout, monkeypatch):
-    """`h2d` is the bytes of the rows that went to a device (once per idx
-    rank on the hash grid), `d2h` the bytes of every payload that came
-    back; both counted here from the calls that move them."""
+    """`h2d` is the bytes of the rows that went to a device (on the hash
+    grid once per distinct device: each of two devices gets the batch, a
+    device named twice gets it once), `d2h` the bytes of every payload
+    that came back; both counted here from the calls that move them."""
     index, reads = _dataset()
     kw = {
         "one device": dict(device="cpu"),
         "two devices": dict(devices=["cpu"] * 2),
-        "hash grid": dict(devices=["cpu"] * 2, index_sharding="hash",
+        "hash grid": dict(devices=["cpu:0", "cpu:1"], index_sharding="hash",
                           idx_shards=2),
+        "hash grid, one device": dict(devices=["cpu"] * 2,
+                                      index_sharding="hash", idx_shards=2),
         "runs only": dict(device="cpu", prechain=PRECHAIN, runs_only=True),
     }[layout]
     tm = TorchMapper(index, K, W, batch_bases=65536, **kw)
@@ -122,7 +125,7 @@ def test_wire_stats_count_the_batches_bytes(layout, monkeypatch):
     monkeypatch.setattr(device_map, "copy_back", copy_back)
     got = _raws(tm, reads)
     copies = 2 if layout == "hash grid" else 1
-    assert tm.idx_shards == copies
+    assert tm.idx_shards == (2 if layout.startswith("hash") else 1)
     n_batches = sum(tm.batches_by_pad.values())
     assert len(up) >= n_batches and len(down) >= n_batches
     if layout == "two devices":
