@@ -1,0 +1,15 @@
+"""Seconds per rebuild in the contig TSV's parse into per-contig chunks
+(the program's span ``index/parse`` in `ContigIndex.from_tsv`, v=1 in a
+traced run). The window's rebuilds are the last spans of that name, one
+per rebuild; nothing where the program records no such span."""
+from ntlink_tpu_torch import tracing
+
+SPAN = "index/parse"
+
+
+def read(run):
+    n = len(run.counters.get("rebuilds") or [])
+    walls = [s.wall_s for s in tracing.GLOBAL.spans if s.name == SPAN]
+    if n == 0 or len(walls) < n:
+        return None
+    return sum(walls[-n:]) / n

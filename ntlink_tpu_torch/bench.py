@@ -287,10 +287,10 @@ def device_busy_share(dev: torch.device, run_leg, root: str):
 def timing_lines(label: str, timing: dict, wall_s: float) -> list:
     """The NTLINK_TIMING split as ``#`` lines: seconds, spans and share of
     the stream's wall per key, grouped by the thread that it is timed on.
-    What a thread spends outside its keys is, for the producer, its
-    per-read Python loop, the joins at each flush and the consumer's work
-    between reads (run decoding, tally); for the feeder and the drainer,
-    the wait for the next batch."""
+    What a thread spends outside its keys is, for the producer, the
+    consumer's per-read loop and what no key holds; for the feeder and the
+    drainer, the wait for the next batch; for the reader, the wait for
+    room in its queue."""
     lines = [f"# timing [{label}]: stream wall {wall_s:.3f} s"]
     for thread, keys in PhaseTimer.THREADS.items():
         total = sum(timing.get(k, (0.0, 0))[0] for k in keys)

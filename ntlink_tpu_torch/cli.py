@@ -113,12 +113,27 @@ Engine options:
   idx_shards=0              shards of the hash-sharded index (0: the largest
                             power of two, up to 4, that divides the cards)
   v=0                       1: print the stage trace (wall, CPU, peak RSS)
-                            and write <prefix>.trace.json
+                            and write <prefix>.trace.json; spans nest
+                            (index/read, index/parse, index/dedup,
+                            contig-sketch/render, /card, /host, /tail;
+                            table/build, table/upload), each with its
+                            start, parent and thread, and each shows up as
+                            an ntlink/<span> range in any torch profile
 Environment:
   NTLINK_TORCH_PROFILE=<dir>  when tracing, one torch.profiler Chrome trace
-                            per stage under <dir>/<stage>/trace.json
+                            per top-level stage under <dir>/<stage>/trace.json
   NTLINK_TIMING=1           per-phase wall seconds of each read stream on
-                            stderr (`# ntlink timing: key=seconds/spans`)
+                            stderr (`# ntlink timing: key=seconds/spans`),
+                            and CPU seconds of the phases timed once a
+                            batch or group and of the main and reader
+                            threads (`# ntlink cpu:`); phases by thread:
+                            main reader_pull read_prep
+                            host_remap pack feed_enqueue_wait flush_join
+                            group_gather chain_render verbose_write tally;
+                            feeder h2d_put dispatch copy_back
+                            drain_enqueue_wait; drainer drain_flat_wait
+                            drain_decode; reader reader_parse (the group
+                            keys show up as ntlink/<key> profile ranges)
   NTLINK_PIPE_DEPTH=4       read batches in flight between the stream's
                             producer, feeder and drainer threads
   NTLINK_NUM_PROCESSES=N NTLINK_PROCESS_ID=i  one of N processes that split

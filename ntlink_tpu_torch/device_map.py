@@ -64,6 +64,7 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 import time
 from typing import Dict, Iterable, Iterator, List, Tuple
 
@@ -85,6 +86,12 @@ from .parallel.sharded_index import (
 from .stream_pipeline import (
     DevicePipeline, PhaseTimer, next_pow2, split_n_rows,
 )
+
+
+#: the producer thread's keys that `_stream` times inside itself, which
+#: `read_prep` leaves out
+_STREAM_KEYS = ("reader_pull", "host_remap", "pack", "feed_enqueue_wait",
+                "flush_join")
 
 
 class _Remap:
@@ -209,31 +216,36 @@ class TorchMapper:
             self._hash_graphs = not tracing.profiling()
         else:
             self.idx_shards = 1
-            t0 = time.perf_counter()
-            if table is None:
-                table = DeviceIndex.build_table(
-                    index.hashes, index.contig_ids, index.positions,
-                    index.strands)
-            t1 = time.perf_counter()
-            on_device: Dict[torch.device, tuple] = {}
-            for dev in self.devices:
-                if dev not in on_device:  # one copy per device
-                    on_device[dev] = (
-                        DeviceIndex.from_numpy(*table, device=dev),
-                        None if clen_np is None
-                        else torch.from_numpy(clen_np).to(dev),
-                    )
-                self._replicas.append(
-                    Replica(dev, *on_device[dev],
-                             own_stream=self.n_devices > 1))
-            self.didx = self._replicas[0].didx
-            for dev in on_device:
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)  # tables are in place
+            with tracing.GLOBAL.stage("table/build"):
+                t0 = time.perf_counter()
+                if table is None:
+                    table = DeviceIndex.build_table(
+                        index.hashes, index.contig_ids, index.positions,
+                        index.strands)
+                t1 = time.perf_counter()
+            with tracing.GLOBAL.stage("table/upload"):
+                t2 = time.perf_counter()
+                on_device: Dict[torch.device, tuple] = {}
+                for dev in self.devices:
+                    if dev not in on_device:  # one copy per device
+                        on_device[dev] = (
+                            DeviceIndex.from_numpy(*table, device=dev),
+                            None if clen_np is None
+                            else torch.from_numpy(clen_np).to(dev),
+                        )
+                    self._replicas.append(
+                        Replica(dev, *on_device[dev],
+                                 own_stream=self.n_devices > 1))
+                self.didx = self._replicas[0].didx
+                for dev in on_device:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)  # tables are in place
+                t3 = time.perf_counter()
             #: host seconds of the table's build (0 for a given `table`)
-            #: and of its upload to every device
+            #: and of its upload to every device: the spans table/build
+            #: and table/upload (v=1)
             self.build_seconds = t1 - t0
-            self.upload_seconds = time.perf_counter() - t1
+            self.upload_seconds = t3 - t2
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0
@@ -250,6 +262,14 @@ class TorchMapper:
         #: NTLINK_TIMING=1: the last stream's {phase: (seconds, spans)};
         #: empty when the variable is unset
         self.last_timing: Dict[str, Tuple[float, int]] = {}
+        #: NTLINK_TIMING=1: the last stream's {phase: CPU seconds of its
+        #: thread in it}, for the phases that carry them, and {thread:
+        #: its whole CPU seconds in the stream} (the producer's, and the
+        #: reader's where `pipeline.map_reads` parsed the file)
+        self.last_cpu: Dict[str, float] = {}
+        self.last_thread_cpu: Dict[str, float] = {}
+        #: (thread id, timer) of a `hold_stream` block that is open
+        self._held = None
 
     def _slots_for(self, L: int) -> int:
         """Minimizer slot budget for padded length L (density ~2/(w+1))."""
@@ -412,20 +432,96 @@ class TorchMapper:
             ]
             yield name, length, hits
 
+    @contextlib.contextmanager
+    def _accounted(self, timer: PhaseTimer):
+        """The accounting of one read stream around a `with` block: its
+        wall (`stream_seconds`), its NTLINK_TIMING split (`last_timing`,
+        `last_cpu`, `last_thread_cpu`, the ``# ntlink timing:`` and
+        ``# ntlink cpu:`` lines) and its summary line."""
+        launches0 = sketch_cuda.launches
+        graphs0 = self.graph_counts()
+        reads0 = self.device_reads + self.host_fallbacks
+        t0 = time.perf_counter()
+        c0 = timer.cpu_now()
+        try:
+            yield timer
+        finally:
+            secs = time.perf_counter() - t0
+            timer.thread_cpu_since("producer", c0)
+            self.stream_seconds += secs
+            self.last_timing = dict(timer.acc)
+            self.last_cpu = dict(timer.cpu)
+            self.last_thread_cpu = dict(timer.thread_cpu)
+            if timer.acc:
+                print(timer.line(), file=sys.stderr)
+                print(timer.cpu_line(), file=sys.stderr)
+            self.kernel_launches += sketch_cuda.launches - launches0
+            n = self.device_reads + self.host_fallbacks - reads0
+            mode = (
+                "runs-only" if self.runs_only
+                else "prechained" if self.prechained else "host-chained"
+            )
+            print(
+                f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
+                f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
+                f"reads/s); {sketch_cuda.launches - launches0} sketch "
+                f"kernel launch(es); so far {self.device_reads} read(s) "
+                f"on the device, batches by (pad, has N) "
+                f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
+                f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
+                f"run-lane overflow); "
+                f"{step_graph.summary(self.graph_counts(), graphs0)}",
+                file=sys.stderr,
+            )
+
+    @contextlib.contextmanager
+    def hold_stream(self, timer: PhaseTimer):
+        """Hold the accounting of the read stream that `map_stream_raw`
+        starts on this thread inside the `with` block open until the block
+        ends: the stream takes `timer`, and its wall, `last_timing` and
+        summary line end with the block, not at its last read. A consumer
+        that iterates the stream on this thread keys its own work in
+        `timer` (``PhaseTimer.THREADS["producer"]``), and so brings its
+        work on the stream's last reads inside the stream's wall. The
+        stream's signature stays ``map_stream_raw(named_seqs)``, which
+        wrappers of it rely on."""
+        with self._accounted(timer):
+            self._held = (threading.get_ident(), timer)
+            try:
+                yield timer
+            finally:
+                self._held = None
+
     def map_stream_raw(self, named_seqs: Iterable[Tuple[str, object]]):
         """Yield (read_name, read_len, raw) in input order. raw is None, or
         (n, rpos, cid, cpos, sbits, hi, lo) int32 arrays (hi = lo = 0 on
         device rows unless `with_hashes`), or with
         `runs_only` (n, runs) where runs is chain.c's (n, 8) int32 run
-        rows."""
-        launches0 = sketch_cuda.launches
-        graphs0 = self.graph_counts()
-        reads0 = self.device_reads + self.host_fallbacks
-        t0 = time.perf_counter()
-        # per-phase accounting of the hot loop: producer thread reader_pull,
-        # pack, feed_enqueue_wait; feeder h2d_put, dispatch, copy_back,
-        # drain_enqueue_wait; drainer drain_flat_wait, drain_decode
-        timer = PhaseTimer(bool(os.environ.get("NTLINK_TIMING")))
+        rows. Inside `hold_stream` on this thread the stream takes the
+        holder's timer; otherwise it accounts for itself, from
+        NTLINK_TIMING as its first read is asked for."""
+        held = self._held
+        if held is not None and held[0] == threading.get_ident():
+            return self._timed_stream(named_seqs, held[1])
+        return self._accounted_stream(named_seqs)
+
+    def _accounted_stream(self, named_seqs):
+        with self._accounted(PhaseTimer.from_env()) as timer:
+            yield from self._timed_stream(named_seqs, timer)
+
+    def _timed_stream(self, named_seqs, timer: PhaseTimer):
+        stream = self._stream(named_seqs, timer)
+        if timer.on:
+            # read_prep: this generator's own time on this thread
+            stream = timer.self_timed(stream, "read_prep", _STREAM_KEYS)
+        return stream
+
+    def _stream(self, named_seqs, timer: PhaseTimer):
+        """`map_stream_raw`'s body, keyed in `timer`: producer thread
+        reader_pull, host_remap, pack, feed_enqueue_wait, flush_join;
+        feeder h2d_put, dispatch, copy_back, drain_enqueue_wait; drainer
+        drain_flat_wait, drain_decode."""
+        timing = timer.on
         wire = self.wire_stats
         pending: List[Tuple[str, int]] = []   # (name, length)
         results: Dict[int, object] = {}
@@ -605,7 +701,10 @@ class TorchMapper:
             pending[i] = None
             raw = results.pop(i)
             if isinstance(raw, _Remap):
+                ts = timer.now() if timing else 0.0
                 raw = self._host_map_raw(raw.codes)
+                if timing:
+                    timer.mark("host_remap", ts)
             else:
                 self.device_reads += 1
             return name, length, raw
@@ -624,15 +723,17 @@ class TorchMapper:
                 if idxs:
                     flush_bucket(key, idxs)
             buckets.clear()
+            ts = timer.now()
             pipe.join_all()
+            timer.mark("flush_join", ts)
             for i in range(next_yield[0], len(pending)):
                 yield deliver(i)
             pending.clear()
             results.clear()
             next_yield[0] = 0
 
-        if timer.on:
-            named_seqs = timer.pull(named_seqs)
+        if timing:
+            named_seqs = timer.timed(named_seqs, "reader_pull")
         try:
             budget = 0
             for name, payload in named_seqs:
@@ -662,29 +763,6 @@ class TorchMapper:
             yield from flush_all()
         finally:
             pipe.close()
-            secs = time.perf_counter() - t0
-            self.stream_seconds += secs
-            self.last_timing = dict(timer.acc)
-            if timer.acc:
-                print(timer.line(), file=sys.stderr)
-            self.kernel_launches += sketch_cuda.launches - launches0
-            n = self.device_reads + self.host_fallbacks - reads0
-            mode = (
-                "runs-only" if self.runs_only
-                else "prechained" if self.prechained else "host-chained"
-            )
-            print(
-                f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
-                f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
-                f"reads/s); {sketch_cuda.launches - launches0} sketch "
-                f"kernel launch(es); so far {self.device_reads} read(s) "
-                f"on the device, batches by (pad, has N) "
-                f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
-                f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
-                f"run-lane overflow); "
-                f"{step_graph.summary(self.graph_counts(), graphs0)}",
-                file=sys.stderr,
-            )
 
 
 def to_device(device: torch.device, packed: np.ndarray,

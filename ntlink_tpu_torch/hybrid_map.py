@@ -89,6 +89,10 @@ class _Runner:
         #: stall clock: last time this path delivered a result OR went
         #: from idle to fed (so warmup stalls are measured from the feed)
         self.last_progress_t = time.monotonic()
+        #: monotonic times of its first block and of its last result (None
+        #: before either), for `HybridStream.path_times`
+        self.first_block_t: Optional[float] = None
+        self.last_result_t: Optional[float] = None
         self._thread = threading.Thread(target=self._run, daemon=True)
 
     def start(self):
@@ -100,6 +104,8 @@ class _Runner:
                 self._span_start = time.perf_counter()
                 self._span_bases = 0
                 self.last_progress_t = time.monotonic()
+                if self.first_block_t is None:
+                    self.first_block_t = self.last_progress_t
             for seq, name, codes in block:
                 self.queue.append((seq, name, codes))
                 self.fifo.append(seq)
@@ -205,6 +211,7 @@ class _Runner:
                         self.reads_done += 1
                         self.rescues_since_progress = 0
                         self.last_progress_t = time.monotonic()
+                        self.last_result_t = self.last_progress_t
                         dt = time.perf_counter() - self._span_start
                         if dt > 0.05 and self._span_bases > 0:
                             inst = self._span_bases / dt
@@ -323,6 +330,10 @@ class HybridStream:
         #: learned service rates (bases/s), persisted across stream()
         #: calls on the same scheduler so a later run starts converged
         self._learned = {}
+        #: of the latest stream that ended: (its start, {"device" / "host":
+        #: (the path's first block, its last result)}), monotonic seconds,
+        #: None for a path that got no block
+        self.path_times = None
 
     def _grant(self, sink, pool, dev, host) -> bool:
         """Pull-based assignment: hand the pool's next block to the
@@ -361,6 +372,7 @@ class HybridStream:
     def stream(
         self, named_codes: Iterable[Tuple[str, object]]
     ) -> Iterator[Tuple[str, int, Optional[tuple]]]:
+        start = time.monotonic()
         sink = _ReorderSink()
         # priors: learned rates from an earlier stream on this scheduler
         # when available (a repeat run starts converged), else conservative
@@ -444,6 +456,9 @@ class HybridStream:
         finally:
             dev.close()
             host.close()
+            self.path_times = (start, {
+                p.name: (p.first_block_t, p.last_result_t)
+                for p in (dev, host)})
 
     #: rescue a path after this long with queued work and zero results
     #: while the other path sits idle (first device batch behind a remote

@@ -18,6 +18,7 @@ from typing import Dict, Iterable, List, Tuple
 import numpy as np
 
 from .ops.nthash_np import Minimizers
+from .tracing import GLOBAL as tracer
 
 
 @dataclass(frozen=True)
@@ -155,38 +156,43 @@ class ContigIndex:
 
         Parses natively when the C build is available (GIL-released,
         ~60 M entries in seconds vs minutes of per-token Python splits at
-        human scale); the Python fallback is semantics-identical."""
+        human scale); the Python fallback is semantics-identical. Traced
+        (v=1) as the spans index/read (the file read; the fallback reads
+        as it parses), index/parse (the parse into per-contig chunks) and
+        index/dedup (`finalize`)."""
         from .native import tsv_module
 
         idx = cls()
         tm = tsv_module()
         if tm is not None:
-            with open(path, "rb") as fh:
-                buf = fh.read()
-            for name, n, hb, pb, sb in tm.parse_sketch(buf):
-                cid = idx._contig_id(name)
-                idx._chunks.append(
-                    (
-                        np.frombuffer(hb, np.uint64),
-                        np.full(n, cid, dtype=np.int32),
-                        np.frombuffer(pb, np.int32),
-                        np.frombuffer(sb, np.uint8).astype(bool),
+            with tracer.stage("index/read"):
+                with open(path, "rb") as fh:
+                    buf = fh.read()
+            with tracer.stage("index/parse"):
+                for name, n, hb, pb, sb in tm.parse_sketch(buf):
+                    cid = idx._contig_id(name)
+                    idx._chunks.append(
+                        (
+                            np.frombuffer(hb, np.uint64),
+                            np.full(n, cid, dtype=np.int32),
+                            np.frombuffer(pb, np.int32),
+                            np.frombuffer(sb, np.uint8).astype(bool),
+                        )
                     )
-                )
             idx._finalized = False
+        else:
+            with tracer.stage("index/parse"), open(path) as fh:
+                for line in fh:
+                    parts = line.rstrip("\n").split("\t")
+                    if len(parts) < 2 or not parts[1]:
+                        continue
+                    entries = []
+                    for token in parts[1].split(" "):
+                        h, p, s = token.split(":")
+                        entries.append((int(h), int(p), s))
+                    idx.add_tsv_entries(parts[0], entries)
+        with tracer.stage("index/dedup"):
             idx.finalize()
-            return idx
-        with open(path) as fh:
-            for line in fh:
-                parts = line.rstrip("\n").split("\t")
-                if len(parts) < 2 or not parts[1]:
-                    continue
-                entries = []
-                for token in parts[1].split(" "):
-                    h, p, s = token.split(":")
-                    entries.append((int(h), int(p), s))
-                idx.add_tsv_entries(parts[0], entries)
-        idx.finalize()
         return idx
 
     @classmethod

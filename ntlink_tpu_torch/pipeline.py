@@ -32,6 +32,7 @@ name in ``ntlink_tpu``). Nothing here imports ``ntlink_tpu``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -58,6 +59,7 @@ from .pairs import PairTally, tally_from_checkpoint
 from .seqio import stream_fastx
 from .seqio.fastx import prefetch_files, stream_codes
 from .sketch import get_backend, sketch_fasta_to_tsv
+from .stream_pipeline import PhaseTimer
 from .tracing import GLOBAL as tracer
 
 BACKENDS = ("auto", "jax", "hybrid", "numpy")
@@ -231,6 +233,23 @@ def _repeat_filter_batch(offs, arrays, hi, lo):
     return new_offs, [a[keep] for a in arrays]
 
 
+def _stream_timers(cfg):
+    """One ``PhaseTimer`` per read file (NTLINK_TIMING=1, read once), and
+    the `timers` argument of `prefetch_files` (None when off)."""
+    timers = [PhaseTimer.from_env() for _ in cfg.reads]
+    return timers, (timers if timers and timers[0].on else None)
+
+
+def _held_stream(mapper, timer: PhaseTimer):
+    """`mapper.hold_stream(timer)` for a TorchMapper: its read stream then
+    takes `timer`, in which the consumer keys its own work, and its wall
+    and timing end with the block, the consumer's last group included.
+    Another mapper's stream accounts for itself."""
+    if isinstance(mapper, TorchMapper):
+        return mapper.hold_stream(timer)
+    return contextlib.nullcontext()
+
+
 def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
                       paf_fh):
     """Hot loop: device batches + one C chain_batch call per read group.
@@ -239,7 +258,9 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
     Only reads producing >= 2 accepted runs surface as Python objects (the
     pair tally is a no-op below that; reference ntlink_pair.py:416-435).
     Verbose/PAF rendering and the repeat filter all run batch-level (C /
-    NumPy), so paf=True and repeats=True stay on this path.
+    NumPy), so paf=True and repeats=True stay on this path. With
+    NTLINK_TIMING=1 each group is keyed in the stream's timer as
+    group_gather, chain_render, verbose_write and tally.
     """
     names = mapper.contig_names
     n_reads = 0
@@ -248,67 +269,72 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
     g_raw: list = []
     mode = (1 if verbose_fh else 0) | (2 if paf_fh else 0)
 
-    def flush_group() -> None:
+    def flush_group(timer: PhaseTimer) -> None:
         if not g_names:
             return
-        n_g = len(g_names)
-        offs = np.zeros(n_g + 1, np.int64)
-        for i, raw in enumerate(g_raw):
-            offs[i + 1] = offs[i] + (raw[0] if raw is not None else 0)
-        total = int(offs[-1])
-        cid = np.empty(total, np.int32)
-        cpos = np.empty(total, np.int32)
-        rpos = np.empty(total, np.int32)
-        sbits = np.empty(total, np.int32)
-        if cfg.repeats:
-            hi = np.empty(total, np.int32)
-            lo = np.empty(total, np.int32)
-        for i, raw in enumerate(g_raw):
-            if raw is None:
-                continue
-            o, n = int(offs[i]), raw[0]
-            rpos[o : o + n] = raw[1]
-            cid[o : o + n] = raw[2]
-            cpos[o : o + n] = raw[3]
-            sbits[o : o + n] = raw[4]
+        with timer.span("group_gather"):
+            n_g = len(g_names)
+            offs = np.zeros(n_g + 1, np.int64)
+            for i, raw in enumerate(g_raw):
+                offs[i + 1] = offs[i] + (raw[0] if raw is not None else 0)
+            total = int(offs[-1])
+            cid = np.empty(total, np.int32)
+            cpos = np.empty(total, np.int32)
+            rpos = np.empty(total, np.int32)
+            sbits = np.empty(total, np.int32)
             if cfg.repeats:
-                hi[o : o + n] = raw[5]
-                lo[o : o + n] = raw[6]
-        if cfg.repeats and total:
-            offs, (cid, cpos, rpos, sbits) = _repeat_filter_batch(
-                offs, (cid, cpos, rpos, sbits), hi, lo
-            )
-        rlens = np.asarray(g_lens, np.int32)
+                hi = np.empty(total, np.int32)
+                lo = np.empty(total, np.int32)
+            for i, raw in enumerate(g_raw):
+                if raw is None:
+                    continue
+                o, n = int(offs[i]), raw[0]
+                rpos[o : o + n] = raw[1]
+                cid[o : o + n] = raw[2]
+                cpos[o : o + n] = raw[3]
+                sbits[o : o + n] = raw[4]
+                if cfg.repeats:
+                    hi[o : o + n] = raw[5]
+                    lo[o : o + n] = raw[6]
+            if cfg.repeats and total:
+                offs, (cid, cpos, rpos, sbits) = _repeat_filter_batch(
+                    offs, (cid, cpos, rpos, sbits), hi, lo
+                )
+            rlens = np.asarray(g_lens, np.int32)
         # pre-chained mappers (on-device chaining / chain_select workers)
         # deliver ACCEPTED anchors in final order: chain_batch only groups
         # consecutive cids and renders — no filters re-run
-        runs_b, ro_b, vbytes, pbytes = chainer.chain_batch(
-            np.ascontiguousarray(cid), np.ascontiguousarray(cpos),
-            np.ascontiguousarray(rpos), np.ascontiguousarray(sbits),
-            offs, rlens,
-            g_names if mode else None,
-            cfg.k, cfg.z, 1 if cfg.sensitive else 0, float(cfg.x), mode,
-            1 if getattr(mapper, "prechained", False) else 0,
-        )
-        if verbose_fh and vbytes:
-            verbose_fh.write(vbytes)
-        if paf_fh and pbytes:
-            paf_fh.write(pbytes)
-        runs_arr = np.frombuffer(runs_b, np.int32).reshape(-1, 8)
-        ro = np.frombuffer(ro_b, np.int32)
-        for i in np.nonzero(np.diff(ro) >= 2)[0]:
-            runs = [
-                RunView(
-                    names[int(row[0])],
-                    int(row[1]),
-                    AH(0, int(row[2]), "+" if row[4] & 1 else "-",
-                       int(row[3]), "+" if row[4] & 2 else "-"),
-                    AH(0, int(row[5]), "+" if row[7] & 1 else "-",
-                       int(row[6]), "+" if row[7] & 2 else "-"),
-                )
-                for row in runs_arr[ro[i] : ro[i + 1]]
-            ]
-            tally.add_read(runs, int(rlens[i]))
+        with timer.span("chain_render"):
+            runs_b, ro_b, vbytes, pbytes = chainer.chain_batch(
+                np.ascontiguousarray(cid), np.ascontiguousarray(cpos),
+                np.ascontiguousarray(rpos), np.ascontiguousarray(sbits),
+                offs, rlens,
+                g_names if mode else None,
+                cfg.k, cfg.z, 1 if cfg.sensitive else 0, float(cfg.x), mode,
+                1 if getattr(mapper, "prechained", False) else 0,
+            )
+        if (verbose_fh and vbytes) or (paf_fh and pbytes):
+            with timer.span("verbose_write"):
+                if verbose_fh and vbytes:
+                    verbose_fh.write(vbytes)
+                if paf_fh and pbytes:
+                    paf_fh.write(pbytes)
+        with timer.span("tally"):
+            runs_arr = np.frombuffer(runs_b, np.int32).reshape(-1, 8)
+            ro = np.frombuffer(ro_b, np.int32)
+            for i in np.nonzero(np.diff(ro) >= 2)[0]:
+                runs = [
+                    RunView(
+                        names[int(row[0])],
+                        int(row[1]),
+                        AH(0, int(row[2]), "+" if row[4] & 1 else "-",
+                           int(row[3]), "+" if row[4] & 2 else "-"),
+                        AH(0, int(row[5]), "+" if row[7] & 1 else "-",
+                           int(row[6]), "+" if row[7] & 2 else "-"),
+                    )
+                    for row in runs_arr[ro[i] : ro[i + 1]]
+                ]
+                tally.add_read(runs, int(rlens[i]))
         g_names.clear()
         g_lens.clear()
         g_raw.clear()
@@ -316,18 +342,20 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
     # parallel decompression: up to cfg.t read files parse concurrently on
     # background threads (pigz-equivalent; file order preserved for the
     # order-sensitive verbose/tally artifacts)
-    for reads_file, codes_iter in prefetch_files(
-        cfg.reads, stream_codes, threads=cfg.t
-    ):
+    timers, reader_timers = _stream_timers(cfg)
+    for (reads_file, codes_iter), timer in zip(prefetch_files(
+        cfg.reads, stream_codes, threads=cfg.t, timers=reader_timers
+    ), timers):
         log("Mapping reads", reads_file, "(native batch chain)")
-        for name, read_len, raw in mapper.map_stream_raw(codes_iter):
-            n_reads += 1
-            g_names.append(name)
-            g_lens.append(read_len)
-            g_raw.append(raw)
-            if len(g_names) >= CHAIN_GROUP:
-                flush_group()
-        flush_group()
+        with _held_stream(mapper, timer):
+            for name, read_len, raw in mapper.map_stream_raw(codes_iter):
+                n_reads += 1
+                g_names.append(name)
+                g_lens.append(read_len)
+                g_raw.append(raw)
+                if len(g_names) >= CHAIN_GROUP:
+                    flush_group(timer)
+            flush_group(timer)
     return n_reads
 
 
@@ -338,29 +366,37 @@ def _map_reads_runs(cfg, mapper, tally):
     chaining at all — single-run reads are a pure counter bump and only
     multi-run reads build Python objects (the pair tally is a no-op below
     2 runs; reference ntlink_pair.py:416-435). No verbose/PAF here: those
-    need per-anchor payloads (map_reads gates)."""
+    need per-anchor payloads (map_reads gates). With NTLINK_TIMING=1 each
+    multi-run read's tally is keyed in the stream's timer as tally."""
     names = mapper.contig_names
     n_reads = 0
-    for reads_file, codes_iter in prefetch_files(
-        cfg.reads, stream_codes, threads=cfg.t
-    ):
+    timers, reader_timers = _stream_timers(cfg)
+    for (reads_file, codes_iter), timer in zip(prefetch_files(
+        cfg.reads, stream_codes, threads=cfg.t, timers=reader_timers
+    ), timers):
         log("Mapping reads", reads_file, "(runs-only payload)")
-        for name, read_len, raw in mapper.map_stream_raw(codes_iter):
-            n_reads += 1
-            if raw is None or raw[0] < 2:
-                continue
-            runs = [
-                RunView(
-                    names[r0],
-                    r1,
-                    AH(0, r2, "+" if r4 & 1 else "-",
-                       r3, "+" if r4 & 2 else "-"),
-                    AH(0, r5, "+" if r7 & 1 else "-",
-                       r6, "+" if r7 & 2 else "-"),
-                )
-                for r0, r1, r2, r3, r4, r5, r6, r7 in raw[1].tolist()
-            ]
-            tally.add_read(runs, read_len)
+        timing = timer.on
+        with _held_stream(mapper, timer):
+            for name, read_len, raw in mapper.map_stream_raw(codes_iter):
+                n_reads += 1
+                if raw is None or raw[0] < 2:
+                    continue
+                if timing:
+                    t0 = time.perf_counter()
+                runs = [
+                    RunView(
+                        names[r0],
+                        r1,
+                        AH(0, r2, "+" if r4 & 1 else "-",
+                           r3, "+" if r4 & 2 else "-"),
+                        AH(0, r5, "+" if r7 & 1 else "-",
+                           r6, "+" if r7 & 2 else "-"),
+                    )
+                    for r0, r1, r2, r3, r4, r5, r6, r7 in raw[1].tolist()
+                ]
+                tally.add_read(runs, read_len)
+                if timing:
+                    timer.add("tally", time.perf_counter() - t0)
     return n_reads
 
 
@@ -538,6 +574,21 @@ def make_mapper(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths,
     return mapper
 
 
+def _stage_mapper(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths,
+                  devices):
+    """`make_mapper`, logging the contig table. `pair_stage` calls it
+    inside ``pair/map-reads``, where the JAX package builds its mapper
+    (inside ``map_reads``), so that the table's spans nest there."""
+    mapper = make_mapper(cfg, index, contig_lengths, devices)
+    if last_mapper is not None and last_mapper.index_sharding != "hash":
+        didx = last_mapper.didx
+        log(f"Contig table: {didx.t_bkt.shape[0]} buckets, max_probes "
+            f"{didx.max_probes}, {didx.t_bkt.nbytes} bytes per device; "
+            f"built in {last_mapper.build_seconds:.1f} s, uploaded in "
+            f"{last_mapper.upload_seconds:.1f} s")
+    return mapper
+
+
 def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
     """Mapping + scaffold-graph stage. Returns the DOT artifact path."""
     global last_map_seconds, last_index_seconds
@@ -576,14 +627,6 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
             index = ContigIndex.from_tsv(tsv)
             last_index_seconds = time.perf_counter() - t0
             log("Index size:", len(index))
-        mapper = make_mapper(cfg, index, contig_lengths, devices)
-        if last_mapper is not None and last_mapper.index_sharding != "hash":
-            didx = last_mapper.didx
-            log(f"Contig table: {didx.t_bkt.shape[0]} buckets, max_probes "
-                f"{didx.max_probes}, {didx.t_bkt.nbytes} bytes per device; "
-                f"built in {last_mapper.build_seconds:.1f} s, uploaded in "
-                f"{last_mapper.upload_seconds:.1f} s")
-        t0 = time.perf_counter()
         if n_processes > 1:
             # per-read-file sharding: each process maps its files into
             # per-file tallies and artifact parts, then everything merges
@@ -594,6 +637,8 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
             verbose_parts: Dict[int, str] = {}
             paf_parts: Dict[int, str] = {}
             with tracer.stage("pair/map-reads"):
+                mapper = _stage_mapper(cfg, index, contig_lengths, devices)
+                t0 = time.perf_counter()
                 for fi, reads_file in enumerate(cfg.reads):
                     if fi % n_processes != process_id:
                         continue
@@ -619,6 +664,8 @@ def pair_stage(cfg: ScaffoldConfig, device=None) -> str:
                     merge_file_parts(f"{prefix}.paf", paf_parts)
         else:
             with tracer.stage("pair/map-reads"):
+                mapper = _stage_mapper(cfg, index, contig_lengths, devices)
+                t0 = time.perf_counter()
                 tally = map_reads(
                     cfg, index, contig_lengths,
                     verbose_path=checkpoint if cfg.verbose else None,

@@ -194,9 +194,13 @@ def prefetch_iter(iterable, depth: int = 256):
         yield item
 
 
-def prefetch_files(paths, make_iter, threads: int = 1, depth: int = 256):
+def prefetch_files(paths, make_iter, threads: int = 1, depth: int = 256,
+                   timers=None):
     """Yield `(path, record-iterator)` in input order while parsing up to
-    `threads` files concurrently on background threads.
+    `threads` files concurrently on background threads. `timers`: a
+    ``stream_pipeline.PhaseTimer`` per path, in which the file's parser
+    thread times each record's parse as ``reader_parse``, and its whole CPU
+    as the thread ``reader`` (NTLINK_TIMING=1).
 
     The pigz-equivalent of the reference pipeline (parallel decompression,
     reference ntLink:112-117): file i is consumed in order — so every
@@ -231,17 +235,25 @@ def prefetch_files(paths, make_iter, threads: int = 1, depth: int = 256):
                 continue
         return False
 
-    def worker(path, q):
+    def worker(path, q, timer):
         try:
             it = make_iter(path)
             try:
-                for item in it:
+                if timer is None:
+                    items = it
+                else:
+                    c0 = timer.cpu_now()
+                    items = timer.timed(it, "reader_parse")
+                for item in items:
                     if not _put(q, item):
                         return
             finally:
                 close = getattr(it, "close", None)
                 if close is not None:
                     close()
+            if timer is not None:
+                # before DONE, which ends the stream
+                timer.thread_cpu_since("reader", c0)
             _put(q, DONE)
         except BaseException as exc:  # propagate into the consumer
             _put(q, exc)
@@ -249,13 +261,14 @@ def prefetch_files(paths, make_iter, threads: int = 1, depth: int = 256):
             slots.release()
 
     def launcher():
-        for path, q in zip(paths, queues):
+        for i, (path, q) in enumerate(zip(paths, queues)):
             slots.acquire()
             if stop.is_set():
                 slots.release()
                 return
             threading.Thread(
-                target=worker, args=(path, q), daemon=True
+                target=worker, args=(path, q, timers and timers[i]),
+                daemon=True
             ).start()
 
     threading.Thread(target=launcher, daemon=True).start()

@@ -49,6 +49,7 @@ from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
 from .seqio import stream_fastx
 from .stream_pipeline import DevicePipeline, next_pow2
+from .tracing import GLOBAL as tracer
 
 
 def get_backend(name: str = "auto", threads: int = 1, device=None):
@@ -495,6 +496,7 @@ class TorchHybridSketcher:
             self.host_seqs = sched.host_reads
             self.device_seqs = sched.device_reads
             self.host_bases, self.device_bases = host.bases, card.bases
+            _trace_paths(sched)
             print(
                 f"# ntlink_tpu_torch hybrid sketch: {secs:.3f} s; "
                 f"{self.device_seqs} sequence(s), {card.bases} bases on "
@@ -503,6 +505,32 @@ class TorchHybridSketcher:
                 f"thread(s)",
                 file=sys.stderr,
             )
+
+
+def _trace_paths(sched: HybridStream) -> None:
+    """The spans (v=1) of a hybrid contig sketch's two paths, from
+    `sched.path_times`: contig-sketch/card and contig-sketch/host, each from
+    the path's first block to its last result, and contig-sketch/tail, from
+    the first path's last result to the second's (a path that got no block
+    ends where the stream began)."""
+    times = sched.path_times
+    if not tracer.enabled or times is None:
+        return
+    start, paths = times
+    now_ns, now = time.time_ns(), time.monotonic()
+
+    def ns(t: float) -> int:
+        return now_ns - int((now - t) * 1e9)
+
+    ends = []
+    for path, span in (("device", "card"), ("host", "host")):
+        first, last = paths[path]
+        if last is not None:
+            tracer.add(f"contig-sketch/{span}", ns(first), last - first)
+        ends.append(start if last is None else last)
+    if any(last is not None for _, last in paths.values()):
+        tracer.add("contig-sketch/tail", ns(min(ends)),
+                   max(ends) - min(ends))
 
 
 def format_minimizers_bytes(mins: Minimizers, with_strand: bool = True) -> bytes:
@@ -541,15 +569,27 @@ def write_sketch_tsv(
     threads: int = 1,
 ) -> None:
     """Stream sequences through the sketcher, writing indexlr-style TSV
-    (binary file handle)."""
+    (binary file handle). Traced (v=1) as the span contig-sketch/render:
+    the seconds of every sequence's rendering and write, summed, from the
+    first one's start."""
+    timed = tracer.enabled
+    first_ns, render_s = None, 0.0
     for name, seq_len, mins in sketch_sequences(
         named_seqs, k, w, backend=backend, threads=threads
     ):
+        if timed:
+            t0 = time.perf_counter()
+            if first_ns is None:
+                first_ns = time.time_ns()
         body = format_minimizers_bytes(mins, with_strand=with_strand)
         if with_len:
             out_fh.write(f"{name}\t{seq_len}\t".encode() + body + b"\n")
         else:
             out_fh.write(f"{name}\t".encode() + body + b"\n")
+        if timed:
+            render_s += time.perf_counter() - t0
+    if first_ns is not None:
+        tracer.add("contig-sketch/render", first_ns, render_s)
 
 
 def sketch_fasta_to_tsv(

@@ -15,15 +15,44 @@ at the next `join_all()`. Shutdown is bounded: a wedged worker (stuck
 device call on a dead link) cannot hang the producer's generator-close
 path — the sentinel put and the thread joins all time out, leaking only
 daemon threads the process does not wait on.
+
+``NTLINK_TIMING=1`` splits a read stream's wall by thread and key
+(`PhaseTimer`, `PhaseTimer.THREADS`; `TorchMapper.last_timing`):
+
+  producer: reader_pull, read_prep, host_remap, pack, feed_enqueue_wait,
+            flush_join (TorchMapper.map_stream_raw); group_gather,
+            chain_render, verbose_write, tally (the consumer in
+            pipeline.map_reads)
+  feeder:   h2d_put, dispatch, copy_back, drain_enqueue_wait
+  drainer:  drain_flat_wait, drain_decode
+  reader:   reader_parse (seqio.fastx.prefetch_files' parser thread)
+
+group_gather, chain_render, verbose_write and the native consumer's tally
+open once per read group, each in a ``ntlink/<key>`` `record_function`
+range while a torch profiler records. The thread's CPU seconds
+(``time.thread_time``; `TorchMapper.last_cpu` and `last_thread_cpu`, the
+``# ntlink cpu:`` line) tell work apart from waits: on a queue, a device,
+or the interpreter lock while another thread runs Python. The keys timed
+at most once per batch, flush, remap or group carry their CPU beside their
+wall. The per-read keys (reader_pull, read_prep, reader_parse, the
+runs-only consumer's tally) carry none: a thread CPU clock can be a system
+call (2.7 us a read of it, in 10 ms steps, on an H100 host), and reading
+it twice a read slows the stream it splits; the producer's and the
+reader's whole CPU in the stream stand in for them. h2d_put and
+drain_flat_wait, timed with the wire's byte counts, carry none either.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import queue
 import threading
 import time
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from . import tracing
 
 
 class DevicePipeline:
@@ -112,45 +141,101 @@ class DevicePipeline:
 
 
 class PhaseTimer:
-    """Per-phase wall-clock accounting of a stream's hot loop
-    (``NTLINK_TIMING=1`` in ``ntlink_tpu/device_map.py``): seconds and
-    number of spans per key. Each key is written by one thread only, so the
-    seconds of one thread's keys cannot sum past the stream's wall. When
-    `on` is False nothing is recorded and `now` reads no clock."""
+    """Per-phase wall-clock accounting of a read stream (``NTLINK_TIMING=1``
+    in ``ntlink_tpu/device_map.py``): seconds and number of spans per key.
+    Each key is written by one thread only, so the seconds of one thread's
+    keys cannot sum past the stream's wall. When `on` is False nothing is
+    recorded and `now` reads no clock.
 
-    #: the read stream's keys, by the thread that each is timed on
+    A key that opens at most once per group or batch may be timed with
+    `span`, which also opens a `record_function` range ``ntlink/<key>``
+    while a torch profiler records (``tracing.open_range``); per-read keys
+    open none."""
+
+    #: the read stream's keys, by the thread that each is timed on. The
+    #: producer is the thread that iterates the stream (the main thread):
+    #: `TorchMapper.map_stream_raw`'s own keys (`read_prep` is its time
+    #: outside the other keys there: encode check, bucketing, pending
+    #: bookkeeping, ready_results), then those of the consumer in
+    #: ``pipeline`` (`tally` in both consumers, the others in the native
+    #: one). The reader is the thread that parses the stream's file
+    #: (``seqio.fastx.prefetch_files``); it may start before the stream,
+    #: by the records its queue holds.
     THREADS = {
-        "producer": ("reader_pull", "pack", "feed_enqueue_wait"),
+        "producer": ("reader_pull", "read_prep", "host_remap", "pack",
+                     "feed_enqueue_wait", "flush_join", "group_gather",
+                     "chain_render", "verbose_write", "tally"),
         "feeder": ("h2d_put", "dispatch", "copy_back",
                    "drain_enqueue_wait"),
         "drainer": ("drain_flat_wait", "drain_decode"),
+        "reader": ("reader_parse",),
     }
 
     def __init__(self, on: bool):
         self.on = on
         #: key -> (seconds, spans)
         self.acc: Dict[str, Tuple[float, int]] = {}
+        #: key -> CPU seconds of its thread inside its spans, for the keys
+        #: timed by `now`/`mark` and `span`
+        self.cpu: Dict[str, float] = {}
+        #: thread of `THREADS` -> its whole CPU seconds in the stream, for
+        #: the threads that read it (`thread_cpu_since`)
+        self.thread_cpu: Dict[str, float] = {}
+        #: each thread's CPU clock at its last `now` or `mark`
+        self._cpu0 = threading.local()
+
+    @classmethod
+    def from_env(cls) -> "PhaseTimer":
+        """On when NTLINK_TIMING is set, read now."""
+        return cls(bool(os.environ.get("NTLINK_TIMING")))
 
     def now(self) -> float:
-        return time.perf_counter() if self.on else 0.0
+        """The start of a span that `mark` closes on this thread."""
+        if not self.on:
+            return 0.0
+        self._cpu0.t = time.thread_time()
+        return time.perf_counter()
 
-    def add(self, key: str, seconds: float) -> None:
-        """One span of `seconds` under `key`."""
+    def add(self, key: str, seconds: float, spans: int = 1,
+            cpu: Optional[float] = None) -> None:
+        """`spans` spans of `seconds` in all under `key`, and `cpu` CPU
+        seconds of their thread in them if given."""
         if self.on:
             s, n = self.acc.get(key, (0.0, 0))
-            self.acc[key] = (s + seconds, n + 1)
+            self.acc[key] = (s + seconds, n + spans)
+            if cpu is not None:
+                self.cpu[key] = self.cpu.get(key, 0.0) + cpu
 
     def mark(self, key: str, t0: float) -> float:
-        """Close the span begun at `t0` under `key`; returns the start of
-        the next one."""
+        """Close the span begun at `t0` (this thread's last `now` or
+        `mark`) under `key`; returns the start of the next one."""
         if not self.on:
             return 0.0
         t1 = time.perf_counter()
-        self.add(key, t1 - t0)
+        c1 = time.thread_time()
+        self.add(key, t1 - t0, cpu=c1 - self._cpu0.t)
+        self._cpu0.t = c1
         return t1
 
-    def pull(self, it):
-        """`it`, with every `next` on it timed as ``reader_pull``."""
+    def cpu_now(self) -> float:
+        """This thread's CPU clock, for `thread_cpu_since` (0 when off)."""
+        return time.thread_time() if self.on else 0.0
+
+    def thread_cpu_since(self, thread: str, c0: float) -> None:
+        """This thread's CPU seconds since `cpu_now` gave `c0`, under
+        `thread`."""
+        if self.on:
+            self.thread_cpu[thread] = (self.thread_cpu.get(thread, 0.0)
+                                       + time.thread_time() - c0)
+
+    def span(self, key: str):
+        """A `with` block timed as one span under `key`, inside a
+        ``ntlink/<key>`` range while a torch profiler records; a shared
+        no-op context when off."""
+        return _Span(self, key) if self.on else _OFF
+
+    def timed(self, it, key: str):
+        """`it`, with every `next` on it timed under `key`."""
         it = iter(it)
         while True:
             t0 = time.perf_counter()
@@ -158,8 +243,31 @@ class PhaseTimer:
                 item = next(it)
             except StopIteration:
                 return
-            self.add("reader_pull", time.perf_counter() - t0)
+            self.add(key, time.perf_counter() - t0)
             yield item
+
+    def self_timed(self, gen, key: str, inner: Tuple[str, ...]):
+        """`gen`, with the time that each `next` spends inside it, less that
+        of the keys in `inner` that it times on this thread meanwhile,
+        under `key`: one span per item. Closing this generator closes
+        `gen`."""
+        before = sum(self.acc.get(k, (0.0, 0))[0] for k in inner)
+        own, items = 0.0, 0
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(gen)
+                except StopIteration:
+                    own += time.perf_counter() - t0
+                    return
+                own += time.perf_counter() - t0
+                items += 1
+                yield item
+        finally:
+            gen.close()
+            after = sum(self.acc.get(k, (0.0, 0))[0] for k in inner)
+            self.add(key, own - (after - before), items)
 
     def line(self) -> str:
         """``# ntlink timing: key=1.234s/56 ...``, keys sorted."""
@@ -167,6 +275,39 @@ class PhaseTimer:
             f"{k}={self.acc[k][0]:.3f}s/{self.acc[k][1]}"
             for k in sorted(self.acc)
         )
+
+    def cpu_line(self) -> str:
+        """``# ntlink cpu: key=0.987s ... threads producer=12.345s ...``:
+        the CPU seconds of the keys that carry them, then of the threads,
+        each sorted."""
+        return "# ntlink cpu: " + " ".join(
+            [f"{k}={self.cpu[k]:.3f}s" for k in sorted(self.cpu)]
+            + ["threads"]
+            + [f"{t}={self.thread_cpu[t]:.3f}s"
+               for t in sorted(self.thread_cpu)])
+
+
+class _Span:
+    """One `PhaseTimer.span`."""
+
+    __slots__ = ("timer", "key", "t0", "c0", "rf")
+
+    def __init__(self, timer: PhaseTimer, key: str):
+        self.timer, self.key = timer, key
+
+    def __enter__(self):
+        self.rf = tracing.open_range(self.key)
+        self.c0 = time.thread_time()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        self.timer.add(self.key, time.perf_counter() - self.t0,
+                       cpu=time.thread_time() - self.c0)
+        tracing.close_range(self.rf)
+        return False
+
+
+_OFF = contextlib.nullcontext()
 
 
 def next_pow2(n: int) -> int:

@@ -7,12 +7,23 @@ written to `<prefix>.trace.json`. Counterpart of ``ntlink_tpu/tracing.py``;
 its device-profile hook is ``torch.profiler`` here: setting
 `NTLINK_TORCH_PROFILE=<dir>` (or `torch_profile_dir` on the tracer)
 captures the CPU and, where there is a card, the CUDA activities around
-each traced stage and exports one Chrome trace per stage,
+each traced top-level stage and exports one Chrome trace per stage,
 `<dir>/<stage>/trace.json` (a stage name's "/" makes a directory level, as
 in the JAX package). The steps' `torch.profiler.record_function` ranges
 (`mapping_step`, `chain`) name the device work by stage there. A profile
 that was asked for and cannot start or be written is an error, not a
 silent skip.
+
+Spans nest: a span opened inside another on the same thread names it as
+its `parent`, and carries its `start_ns` on ``time.time_ns()``, which is
+the clock of a ``torch.profiler`` Chrome trace (an event's `ts` plus the
+trace's `baseTimeNanoseconds` / 1e3, in microseconds), and its `thread`.
+While any ``torch.profiler`` records, every span also opens a
+`record_function` range ``ntlink/<name>`` (`open_range`), so that it lies
+on the device trace's timeline beside the kernels; with no profiler
+recording no range is opened. `add` records a span whose interval was
+measured elsewhere (the sum of a stage's pieces, or a worker path's first
+and last block); such a span opens no range.
 
 A replayed CUDA graph records none of those ranges, so while a profile
 may be taken (`profiling`: NTLINK_TORCH_PROFILE, or a profile directory on
@@ -28,9 +39,32 @@ import json
 import os
 import resource
 import sys
+import threading
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional
+
+#: prefix of the program's `record_function` ranges
+RANGE_PREFIX = "ntlink/"
+
+
+def open_range(name: str):
+    """A `record_function` range ``ntlink/<name>``, entered, while a
+    ``torch.profiler`` records in this process; None otherwise (and when
+    torch was never imported). Close it with `close_range`."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    # the module's flag is set for every thread while a profiler records
+    # (the C check is per thread, and off under profile_all_threads)
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rf = prof.record_function(RANGE_PREFIX + name)
+    rf.__enter__()
+    return rf
+
+
+def close_range(rf) -> None:
+    if rf is not None:
+        rf.__exit__(None, None, None)
 
 
 @dataclass
@@ -39,6 +73,11 @@ class Span:
     wall_s: float
     cpu_s: float
     max_rss_kb: int
+    #: its start on ``time.time_ns()``, the clock of a torch profile
+    start_ns: int = 0
+    #: the name of the span open around it on its thread, or None
+    parent: Optional[str] = None
+    thread: str = ""
 
 
 class Tracer:
@@ -51,11 +90,19 @@ class Tracer:
         self.torch_profile_dir = torch_profile_dir or os.environ.get(
             "NTLINK_TORCH_PROFILE"
         )
-        #: a CUDA device whose peak allocated bytes over each stage go to
-        #: `device_peak_bytes` by stage name (the spans and their JSON stay
-        #: those of the JAX package)
+        #: a CUDA device whose peak allocated bytes over each top-level
+        #: stage go to `device_peak_bytes` by stage name (the spans and
+        #: their JSON stay those of the JAX package)
         self.device = None
         self.device_peak_bytes: Dict[str, int] = {}
+        #: each thread's open span names, innermost last
+        self._open = threading.local()
+
+    def _stack(self) -> List[str]:
+        stack = getattr(self._open, "names", None)
+        if stack is None:
+            stack = self._open.names = []
+        return stack
 
     def _start_profile(self, name: str):
         """Start a ``torch.profiler`` capture for stage `name`; returns
@@ -80,43 +127,81 @@ class Tracer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """A span around the block; nested in the span open on this thread,
+        if any. Only a top-level span takes a per-stage profile and the
+        device's peak memory."""
         if not self.enabled:
             yield
             return
+        stack = self._stack()
+        parent = stack[-1] if stack else None
         prof = None
-        if self.torch_profile_dir:
+        if parent is None and self.torch_profile_dir:
             prof, trace_path = self._start_profile(name)
-        if self.device is not None:
+        peak = parent is None and self.device is not None
+        if peak:
             import torch
 
             torch.cuda.reset_peak_memory_stats(self.device)
-        t0 = time.time()
+        rf = open_range(name)
+        stack.append(name)
+        t0 = time.time_ns()
         c0 = time.process_time()
         try:
             yield
         finally:
-            if self.device is not None:
+            wall = (time.time_ns() - t0) / 1e9
+            cpu = time.process_time() - c0
+            stack.pop()
+            close_range(rf)
+            if peak:
                 self.device_peak_bytes[name] = torch.cuda.max_memory_allocated(
                     self.device)
             if prof is not None:
                 prof.stop()
                 prof.export_chrome_trace(trace_path)
             rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
-            self.spans.append(
-                Span(name, time.time() - t0, time.process_time() - c0, rss)
-            )
+            self.spans.append(Span(name, wall, cpu, rss, t0, parent,
+                                   threading.current_thread().name))
+
+    def add(self, name: str, start_ns: int, wall_s: float,
+            cpu_s: float = 0.0) -> None:
+        """Record a span measured elsewhere: `wall_s` seconds from
+        `start_ns` (``time.time_ns()``), nested in the span open on this
+        thread, if any. It opens no range."""
+        if not self.enabled:
+            return
+        stack = self._stack()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        self.spans.append(Span(name, wall_s, cpu_s, rss, int(start_ns),
+                               stack[-1] if stack else None,
+                               threading.current_thread().name))
+
+    def ordered(self) -> List[Span]:
+        """The spans by start, a span before those it holds."""
+        return sorted(self.spans, key=lambda s: (s.start_ns, -s.wall_s))
 
     def report(self, out=sys.stdout) -> None:
+        """The spans by start, each nested span indented under its parent;
+        the total is that of the top-level spans."""
         if not self.enabled or not self.spans:
             return
-        total = sum(s.wall_s for s in self.spans)
+        total = sum(s.wall_s for s in self.spans if s.parent is None)
         print("\nStage trace:", file=out)
-        for s in self.spans:
+        ends: Dict[str, List[int]] = {}  # thread -> ends of open spans
+        for s in self.ordered():
+            open_ = ends.setdefault(s.thread, [])
+            if s.parent is None:
+                open_.clear()
+            while open_ and open_[-1] <= s.start_ns:
+                open_.pop()
+            pad = "  " * len(open_)
             print(
-                f"  {s.name:<24} wall {s.wall_s:8.2f}s  cpu {s.cpu_s:8.2f}s  "
-                f"peak-rss {s.max_rss_kb/1024:8.1f} MB",
+                f"  {pad}{s.name:<{24 - len(pad)}} wall {s.wall_s:8.2f}s  "
+                f"cpu {s.cpu_s:8.2f}s  peak-rss {s.max_rss_kb/1024:8.1f} MB",
                 file=out,
             )
+            open_.append(s.start_ns + int(s.wall_s * 1e9))
         print(f"  {'TOTAL':<24} wall {total:8.2f}s", file=out)
 
     def write_json(self, path: str) -> None:
@@ -124,7 +209,7 @@ class Tracer:
             return
         with open(path, "w") as fh:
             json.dump(
-                [s.__dict__ for s in self.spans], fh, indent=1
+                [s.__dict__ for s in self.ordered()], fh, indent=1
             )
 
 
@@ -156,7 +241,10 @@ def stage_device_times(trace_path: str) -> dict:
     {"stages": {range name: {"us": device microseconds of its kernels and
     copies, "events": their count}}, "unattributed_us": device time
     outside every range, "total_us": all of it, "kernels": {kernel name:
-    microseconds}}."""
+    microseconds}}. `total_us` and `unattributed_us` are each the union
+    of their intervals on each device (a trace's `pid`), summed over the
+    devices: work that overlaps on two streams counts once, so that
+    `total_us` over a window's wall is the device's busy share."""
     import bisect
     import itertools
 
@@ -182,6 +270,7 @@ def stage_device_times(trace_path: str) -> dict:
         reach[key] = list(itertools.accumulate((s[1] for s in spans), max))
     out = {"stages": {}, "unattributed_us": 0.0, "total_us": 0.0,
            "kernels": {}}
+    busy: dict = {}     # (pid, attributed) -> [(start, end)]
     for e in work:
         key = (e["pid"], e["tid"])
         name = None
@@ -195,14 +284,32 @@ def stage_device_times(trace_path: str) -> dict:
                     name = ranges[key][i][2]
                     break
                 i -= 1
-        out["total_us"] += e["dur"]
+        busy.setdefault((e["pid"], name is not None), []).append(
+            (e["ts"], e["ts"] + e["dur"]))
         if e.get("cat") == "kernel":
             out["kernels"][e["name"]] = (
                 out["kernels"].get(e["name"], 0.0) + e["dur"])
         if name is None:
-            out["unattributed_us"] += e["dur"]
             continue
         stage = out["stages"].setdefault(name, {"us": 0.0, "events": 0})
         stage["us"] += e["dur"]
         stage["events"] += 1
+    for pid in {pid for pid, _ in busy}:
+        out["total_us"] += _union_us(busy.get((pid, True), [])
+                                     + busy.get((pid, False), []))
+        out["unattributed_us"] += _union_us(busy.get((pid, False), []))
     return out
+
+
+def _union_us(intervals) -> float:
+    """Length of the union of [start, end) intervals: overlaps count
+    once."""
+    total, reach = 0.0, None
+    for a, b in sorted(intervals):
+        if reach is None or a > reach:
+            total += b - a
+            reach = b
+        elif b > reach:
+            total += b - reach
+            reach = b
+    return total

@@ -56,7 +56,7 @@ def stage_walls(tracer, total_s: float) -> dict:
         "index_parse": pipeline.last_index_seconds,
         "table_build": getattr(mapper, "build_seconds", None),
         "upload": getattr(mapper, "upload_seconds", None),
-        "mapping": walls.get("pair/map-reads"),
+        "mapping": pipeline.last_map_seconds,
         "graph": walls.get("pair/graph-build"),
         "layout_stitch": walls.get("layout+stitch"),
         "overlap": walls.get("overlap-trim"),
@@ -115,9 +115,9 @@ def main(argv=None) -> int:
     peak_rss = scale.peak_rss_gib()
     walls = stage_walls(tracer, total_s)
     peaks = {name: b / 2**20 for name, b in tracer.device_peak_bytes.items()}
-    # the tracer restarts the device's peak at every stage: the run's peak
-    # is the largest stage's (the table, built between two stages, stays
-    # allocated through the next one)
+    # the tracer restarts the device's peak at every top-level stage: the
+    # run's peak is the largest stage's (the table is built inside
+    # pair/map-reads)
     peak_dev = max(peaks.values(), default=0.0) if cuda else None
     rss = {s.name: s.max_rss_kb / 2**20 for s in tracer.spans}
     for name, secs in walls.items():

@@ -13,11 +13,19 @@ import pytest
 from ntlink_tpu.device_map import DeviceMapper
 from ntlink_tpu_torch import device_map
 from ntlink_tpu_torch.device_map import TorchMapper
+from ntlink_tpu_torch.stream_pipeline import PhaseTimer
 
 from .test_torch_device_map import K, W, _dataset, _raws, _same, _same_runs
 
-KEYS = ("reader_pull", "pack", "feed_enqueue_wait", "h2d_put", "dispatch",
-        "copy_back", "drain_enqueue_wait", "drain_flat_wait", "drain_decode")
+#: the keys of `PhaseTimer.THREADS` that a mapper's own stream times: all
+#: but the consumer's (``pipeline.map_reads``) and the reader thread's
+#: (``prefetch_files``), which a bare `map_stream_raw` does not run
+CONSUMER = ("group_gather", "chain_render", "verbose_write", "tally")
+KEYS = tuple(k for thread, keys in PhaseTimer.THREADS.items()
+             if thread != "reader" for k in keys if k not in CONSUMER)
+#: the keys timed once per batch
+PER_BATCH = (("pack", "feed_enqueue_wait") + PhaseTimer.THREADS["feeder"]
+             + PhaseTimer.THREADS["drainer"])
 LINE = re.compile(r"^# ntlink timing: (.*)$", re.M)
 PRECHAIN = (np.full(3, 150_000, np.int32), 1000)
 
@@ -52,7 +60,7 @@ def test_timing_line_and_last_timing(monkeypatch, capsys):
     assert list(parsed) == sorted(KEYS)  # every key, sorted
     n_batches = sum(tm.batches_by_pad.values())
     assert n_batches >= 8
-    for key in KEYS[1:]:
+    for key in PER_BATCH:
         assert parsed[key][1] == n_batches, key
     assert parsed["reader_pull"][1] == len(reads)
     assert set(tm.last_timing) == set(KEYS)
@@ -61,8 +69,8 @@ def test_timing_line_and_last_timing(monkeypatch, capsys):
         assert secs == pytest.approx(parsed[key][0], abs=1e-3)
         assert secs >= 0.0
     # one thread's keys cannot sum past the stream's wall
-    for thread in (KEYS[:3], KEYS[3:7], KEYS[7:]):
-        assert sum(tm.last_timing[k][0] for k in thread) <= wall
+    for thread in PhaseTimer.THREADS.values():
+        assert sum(tm.last_timing.get(k, (0.0, 0))[0] for k in thread) <= wall
     # the payloads: unchanged, and DeviceMapper's
     dm = DeviceMapper(index, K, W, batch_bases=65536, use_mesh=False,
                       with_hashes=False, prechain=None)

@@ -21,6 +21,7 @@ from .synthetic import assert_same_tree, write_dataset
 KWZ = "target.fa.k32.w100.z1000"
 SPANS = ["pair/contig-sketch", "pair/map-reads", "pair/graph-build",
          "layout+stitch", "overlap-trim", "merge", "gap-fill"]
+TABLE = ["table/build", "table/upload"]
 
 
 def _cfg(**kw):
@@ -48,14 +49,25 @@ def test_spans_match_the_jax_package(tmp_path, monkeypatch, tracers):
     pipeline.run_scaffold(_cfg(v=1), gap_fill=True, device="cpu")
     monkeypatch.chdir(tmp_path / "numpy")
     ref.run_scaffold(_cfg(v=1, backend="numpy"), gap_fill=True)
-    names = [s.name for s in port_tracer.spans]
+    # the port's top-level spans are the JAX package's; its own spans nest
+    # in them: the contig index's in the contig sketch, and the contig
+    # table's in the read mapping, where the JAX package builds its mapper
+    names = [s.name for s in port_tracer.spans if s.parent is None]
     assert names == [s.name for s in ref_tracer.spans] == SPANS
-    # the report and the JSON, as ntlink_tpu writes them
+    parents = {s.name: s.parent for s in port_tracer.spans if s.parent}
+    assert parents == {
+        **{n: "pair/contig-sketch" for n in (
+            "contig-sketch/render", "index/read", "index/parse",
+            "index/dedup")},
+        **{n: "pair/map-reads" for n in TABLE}}
+    # the report and the JSON, as ntlink_tpu writes them, the nested spans
+    # indented under theirs in the report
     reports = []
     for t in (port_tracer, ref_tracer):
         buf = io.StringIO()
         t.report(buf)
-        reports.append([line[:31] for line in buf.getvalue().splitlines()])
+        reports.append([line[:31] for line in buf.getvalue().splitlines()
+                        if not line.startswith("    ")])
     assert reports[0] == reports[1]
     assert reports[0][:2] == ["", "Stage trace:"]
     assert reports[0][2:] == [f"  {name:<24} wall" for name in SPANS + ["TOTAL"]]
@@ -63,8 +75,11 @@ def test_spans_match_the_jax_package(tmp_path, monkeypatch, tracers):
         spans = json.load(fh)
     with open(tmp_path / "numpy" / f"{KWZ}.trace.json") as fh:
         ref_spans = json.load(fh)
-    assert [s["name"] for s in spans] == SPANS
-    assert [sorted(s) for s in spans] == [sorted(s) for s in ref_spans]
+    top = [s for s in spans if s["parent"] is None]
+    assert [s["name"] for s in top] == SPANS
+    # the JAX package's fields, and beside them start_ns, parent, thread
+    assert [sorted(s) for s in top] == [
+        sorted(list(s) + ["parent", "start_ns", "thread"]) for s in ref_spans]
     assert all(s["wall_s"] >= 0 and s["max_rss_kb"] > 0 for s in spans)
     # artifacts do not change with v
     monkeypatch.setattr(port_tracer, "enabled", False)
@@ -96,7 +111,7 @@ def test_profile_writes_a_trace_per_stage(tmp_path, monkeypatch, tracers):
     monkeypatch.chdir(tmp_path / "run")
     pipeline.pair_stage(_cfg(v=1), device="cpu")
     stages = ["pair/contig-sketch", "pair/map-reads", "pair/graph-build"]
-    assert [s.name for s in port_tracer.spans] == stages
+    assert [s.name for s in port_tracer.spans if s.parent is None] == stages
     for stage in stages:
         path = tmp_path / "prof" / stage / "trace.json"
         assert os.path.getsize(path) > 0, stage
@@ -130,7 +145,8 @@ def test_enable_sets_the_profile_directory(monkeypatch):
 
 def test_stage_device_times_attributes_by_stream_and_span(tmp_path):
     """A made-up Chrome trace: device work counts for the range that spans
-    it on its own stream, and for none otherwise."""
+    it on its own stream, and for none otherwise; the device's time counts
+    work on two streams at once once (k1 on streams 7 and 8)."""
     def ev(cat, tid, ts, dur, name):
         return {"ph": "X", "cat": cat, "pid": 0, "tid": tid, "ts": ts,
                 "dur": dur, "name": name}
@@ -149,7 +165,7 @@ def test_stage_device_times_attributes_by_stream_and_span(tmp_path):
     assert tracing.stage_device_times(str(path)) == {
         "stages": {"mapping_step/sketch": {"us": 30.0, "events": 1},
                    "mapping_step/join": {"us": 5.0, "events": 1}},
-        "unattributed_us": 35.0, "total_us": 70.0,
+        "unattributed_us": 35.0, "total_us": 40.0,
         "kernels": {"k1": 60.0, "k2": 5.0},
     }
 
@@ -184,3 +200,28 @@ def test_stage_device_times_takes_the_innermost_range(tmp_path):
         "chain/accept": {"us": 10.0, "events": 1},
     }
     assert got["unattributed_us"] == 10.0 and got["total_us"] == 50.0
+
+
+def test_stage_device_times_counts_overlapping_work_once(tmp_path):
+    """Two kernels that overlap on two streams of one device: the device's
+    time is their union, as the benchmark's busy time; each range and each
+    kernel name keeps its own sum."""
+    def ev(cat, tid, ts, dur, name, pid=0):
+        return {"ph": "X", "cat": cat, "pid": pid, "tid": tid, "ts": ts,
+                "dur": dur, "name": name}
+
+    events = [
+        ev("gpu_user_annotation", 7, 0, 100, "mapping_step/sketch"),
+        ev("kernel", 7, 10, 40, "a"),      # 10..50, in the range
+        ev("kernel", 9, 30, 40, "b"),      # 30..70, overlaps a, no range
+        ev("kernel", 9, 60, 20, "b"),      # 60..80, overlaps the last b
+        ev("kernel", 7, 30, 40, "a", pid=1),  # another device: its own
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    got = tracing.stage_device_times(str(path))
+    assert got["total_us"] == 70.0 + 40.0       # 10..80 on 0, 30..70 on 1
+    assert got["unattributed_us"] == 50.0 + 40.0   # 30..80, and device 1
+    assert got["stages"] == {"mapping_step/sketch": {"us": 40.0,
+                                                     "events": 1}}
+    assert got["kernels"] == {"a": 80.0, "b": 60.0}
