@@ -62,6 +62,7 @@ enqueue is in `dispatch`, with the replay.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import sys
 import threading
@@ -83,6 +84,7 @@ from .ops.nthash_np import Minimizers
 from .parallel.sharded_index import (
     ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
 )
+from .seqio.fastx import CodeBlock, code_blocks
 from .stream_pipeline import (
     DevicePipeline, PhaseTimer, next_pow2, split_n_rows,
 )
@@ -92,6 +94,30 @@ from .stream_pipeline import (
 #: `read_prep` leaves out
 _STREAM_KEYS = ("reader_pull", "host_remap", "pack", "feed_enqueue_wait",
                 "flush_join")
+
+#: reads of a block that `map_stream_raw` groups a per-record caller's
+#: reads into: enough to spread the intake's per-block NumPy calls thin,
+#: few enough that a caller handing reads over one at a time, with pauses
+#: between them, gets results back before it ends its input
+PAIR_BLOCK_READS = 32
+
+
+def as_blocks(items: Iterable, block_bases: int) -> Iterator[CodeBlock]:
+    """`items` as `CodeBlock`s: blocks pass as they are; (name, codes or
+    sequence) pairs are grouped into blocks of up to `PAIR_BLOCK_READS`
+    reads or `block_bases` bases (``seqio.fastx.code_blocks``). The first
+    item decides which."""
+    items = iter(items)
+    first = next(items, None)
+    if first is None:
+        return
+    rest = itertools.chain([first], items)
+    if isinstance(first, CodeBlock):
+        yield from rest
+        return
+    codes = ((name, payload if isinstance(payload, np.ndarray)
+              else nthash_np.encode(payload)) for name, payload in rest)
+    yield from code_blocks(codes, block_bases, PAIR_BLOCK_READS)
 
 
 class _Remap:
@@ -155,6 +181,13 @@ class TorchMapper:
 
     MIN_PAD = 1 << 10
     MAX_PAD = 1 << 21
+    #: bases of one block of reads that the reader hands to the stream
+    #: (`map_stream_raw`; ~150 ONT reads of 10-15 kb), a quarter of the
+    #: default `batch_bases`
+    BLOCK_BASES = 1 << 21
+    #: batches' worth of padded device reads between two flushes of every
+    #: bucket (`flush_all`)
+    FLUSH_BATCHES = 4
     #: in-flight batches between the producer, feeder and drainer threads
     #: (NTLINK_PIPE_DEPTH overrides it)
     DEPTH = 4
@@ -249,6 +282,8 @@ class TorchMapper:
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0
+        #: blocks of reads taken in, over every stream
+        self.read_blocks = 0
         #: device batches dispatched, by (padded row length, has N)
         self.batches_by_pad: Dict[Tuple[int, bool], int] = {}
         #: sketch kernel launches of every stream so far
@@ -270,6 +305,15 @@ class TorchMapper:
         self.last_thread_cpu: Dict[str, float] = {}
         #: (thread id, timer) of a `hold_stream` block that is open
         self._held = None
+
+    @property
+    def blocks_ahead(self) -> int:
+        """Blocks of `BLOCK_BASES` that a reader thread may parse ahead of
+        the stream: one `flush_all`'s worth of reads. The stream takes no
+        block while a flush joins and delivers, then the next flush's
+        blocks in a burst, so a shallower queue stalls the reader in the
+        one and the stream in the other."""
+        return -(-self.FLUSH_BATCHES * self.batch_bases // self.BLOCK_BASES)
 
     def _slots_for(self, L: int) -> int:
         """Minimizer slot budget for padded length L (density ~2/(w+1))."""
@@ -397,6 +441,14 @@ class TorchMapper:
             p <<= 1
         return p
 
+    def _pad_log2(self, lengths: np.ndarray) -> np.ndarray:
+        """log2 of `_pad_len` of each length: the next power of two, held
+        between MIN_PAD and MAX_PAD (``frexp`` of n - 1 is its bit length,
+        exact below 2**53)."""
+        bits = np.frexp(np.maximum(lengths, 1) - 1)[1]
+        return np.clip(bits, self.MIN_PAD.bit_length() - 1,
+                       self.MAX_PAD.bit_length() - 1).astype(np.int64)
+
     def map_stream(
         self, named_seqs: Iterable[Tuple[str, str]]
     ) -> Iterator[Tuple[str, int, List[Tuple[str, AnchorHit]]]]:
@@ -441,6 +493,7 @@ class TorchMapper:
         launches0 = sketch_cuda.launches
         graphs0 = self.graph_counts()
         reads0 = self.device_reads + self.host_fallbacks
+        blocks0 = self.read_blocks
         t0 = time.perf_counter()
         c0 = timer.cpu_now()
         try:
@@ -457,6 +510,7 @@ class TorchMapper:
                 print(timer.cpu_line(), file=sys.stderr)
             self.kernel_launches += sketch_cuda.launches - launches0
             n = self.device_reads + self.host_fallbacks - reads0
+            blocks = self.read_blocks - blocks0
             mode = (
                 "runs-only" if self.runs_only
                 else "prechained" if self.prechained else "host-chained"
@@ -464,7 +518,9 @@ class TorchMapper:
             print(
                 f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
                 f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
-                f"reads/s); {sketch_cuda.launches - launches0} sketch "
+                f"reads/s) in {blocks} block(s) of "
+                f"{n / max(blocks, 1):.1f} reads; "
+                f"{sketch_cuda.launches - launches0} sketch "
                 f"kernel launch(es); so far {self.device_reads} read(s) "
                 f"on the device, batches by (pad, has N) "
                 f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
@@ -492,48 +548,60 @@ class TorchMapper:
             finally:
                 self._held = None
 
-    def map_stream_raw(self, named_seqs: Iterable[Tuple[str, object]]):
+    def map_stream_raw(self, named_seqs: Iterable):
         """Yield (read_name, read_len, raw) in input order. raw is None, or
         (n, rpos, cid, cpos, sbits, hi, lo) int32 arrays (hi = lo = 0 on
         device rows unless `with_hashes`), or with
         `runs_only` (n, runs) where runs is chain.c's (n, 8) int32 run
-        rows. Inside `hold_stream` on this thread the stream takes the
-        holder's timer; otherwise it accounts for itself, from
-        NTLINK_TIMING as its first read is asked for."""
+        rows. The reads come in `CodeBlock`s
+        (``seqio.fastx.stream_code_blocks``), or as (name, codes or
+        sequence) pairs, which are grouped into blocks of up to
+        `PAIR_BLOCK_READS` (`as_blocks`). Inside `hold_stream` on this
+        thread the stream takes the holder's timer; otherwise it accounts
+        for itself, from NTLINK_TIMING as its first read is asked for."""
+        blocks = as_blocks(named_seqs, self.BLOCK_BASES)
         held = self._held
         if held is not None and held[0] == threading.get_ident():
-            return self._timed_stream(named_seqs, held[1])
-        return self._accounted_stream(named_seqs)
+            return self._timed_stream(blocks, held[1])
+        return self._accounted_stream(blocks)
 
-    def _accounted_stream(self, named_seqs):
+    def _accounted_stream(self, blocks):
         with self._accounted(PhaseTimer.from_env()) as timer:
-            yield from self._timed_stream(named_seqs, timer)
+            yield from self._timed_stream(blocks, timer)
 
-    def _timed_stream(self, named_seqs, timer: PhaseTimer):
-        stream = self._stream(named_seqs, timer)
+    def _timed_stream(self, blocks, timer: PhaseTimer):
+        stream = self._stream(blocks, timer)
         if timer.on:
             # read_prep: this generator's own time on this thread
             stream = timer.self_timed(stream, "read_prep", _STREAM_KEYS)
         return stream
 
-    def _stream(self, named_seqs, timer: PhaseTimer):
+    def _stream(self, blocks, timer: PhaseTimer):
         """`map_stream_raw`'s body, keyed in `timer`: producer thread
-        reader_pull, host_remap, pack, feed_enqueue_wait, flush_join;
-        feeder h2d_put, dispatch, copy_back, drain_enqueue_wait; drainer
-        drain_flat_wait, drain_decode."""
+        reader_pull (per block), host_remap, pack, feed_enqueue_wait,
+        flush_join; feeder h2d_put, dispatch, copy_back,
+        drain_enqueue_wait; drainer drain_flat_wait, drain_decode."""
         timing = timer.on
         wire = self.wire_stats
-        pending: List[Tuple[str, int]] = []   # (name, length)
+        # the reads since the last flush_all, by their index there
+        names: List[str] = []
+        read_lens: List[int] = []
+        read_codes: List[np.ndarray] = []
         results: Dict[int, object] = {}
-        encoded: Dict[int, np.ndarray] = {}
-        buckets: Dict[tuple, List[int]] = {}  # (pad, has_n) -> read idxs
+        # bucket code 2 * log2(pad) + has_n -> read idxs, in the order of
+        # each bucket's first read since the last flush_all
+        buckets: Dict[int, List[int]] = {}
         next_yield = [0]
 
-        def flush_bucket(key: tuple, idxs: List[int]) -> None:
+        def full_height(code: int) -> int:
+            return batch_rows(1 << (code >> 1), self.batch_bases)
+
+        def flush_bucket(code: int, idxs: List[int]) -> None:
+            key = (1 << (code >> 1), bool(code & 1))
             pad, has_n = key
             # partial flushes step the height down to the next power of two
-            B = min(batch_rows(pad, self.batch_bases), next_pow2(len(idxs)))
-            row_codes = [encoded.pop(i) for i in idxs]
+            B = min(full_height(code), next_pow2(len(idxs)))
+            row_codes = [read_codes[i] for i in idxs]
             lengths = np.zeros(B, dtype=np.int32)
             lengths[: len(idxs)] = [len(c) for c in row_codes]
             ts = timer.now()
@@ -697,8 +765,6 @@ class TorchMapper:
                               name="ntlink-torch-map")
 
         def deliver(i: int):
-            name, length = pending[i]
-            pending[i] = None
             raw = results.pop(i)
             if isinstance(raw, _Remap):
                 ts = timer.now() if timing else 0.0
@@ -707,59 +773,101 @@ class TorchMapper:
                     timer.mark("host_remap", ts)
             else:
                 self.device_reads += 1
-            return name, length, raw
+            return names[i], read_lens[i], raw
 
         def ready_results():
             # in input order, as soon as a read's batch has drained (the
             # drainer only adds keys; this thread pops)
             i = next_yield[0]
-            while i < len(pending) and i in results:
+            while i < len(names) and i in results:
                 yield deliver(i)
                 i += 1
             next_yield[0] = i
 
         def flush_all():
-            for key, idxs in list(buckets.items()):
+            for code, idxs in list(buckets.items()):
                 if idxs:
-                    flush_bucket(key, idxs)
+                    flush_bucket(code, idxs)
             buckets.clear()
             ts = timer.now()
             pipe.join_all()
             timer.mark("flush_join", ts)
-            for i in range(next_yield[0], len(pending)):
+            for i in range(next_yield[0], len(names)):
                 yield deliver(i)
-            pending.clear()
+            names.clear()
+            read_lens.clear()
+            read_codes.clear()
             results.clear()
             next_yield[0] = 0
 
+        # A read the device takes joins its (pad, has N) bucket, which is
+        # flushed as a batch once it holds a full batch's rows; every
+        # FLUSH_BATCHES x batch_bases of padded device reads (`budget`)
+        # flush_all sends
+        # every bucket and delivers every read so far. A block's reads are
+        # taken in segments that end at the first read where either
+        # happens, so each flush falls on the read it would fall on one
+        # read at a time, whatever the blocks' bounds.
         if timing:
-            named_seqs = timer.timed(named_seqs, "reader_pull")
+            blocks = timer.timed(blocks, "reader_pull")
+        limit = self.FLUSH_BATCHES * self.batch_bases
         try:
             budget = 0
-            for name, payload in named_seqs:
-                i = len(pending)
-                codes = (
-                    payload if isinstance(payload, np.ndarray)
-                    else nthash_np.encode(payload)
-                )
-                pending.append((name, len(codes)))
-                if len(codes) < self.k or len(codes) > self.MAX_PAD:
-                    results[i] = _Remap(codes)
-                    yield from ready_results()
-                    continue
-                encoded[i] = codes
-                pad = self._pad_len(len(codes))
-                key = (pad, bool((codes > 3).any()))
-                bucket = buckets.setdefault(key, [])
-                bucket.append(i)
-                if len(bucket) >= batch_rows(pad, self.batch_bases):
-                    flush_bucket(key, bucket)
-                    buckets[key] = []
-                    yield from ready_results()
-                budget += pad
-                if budget >= 4 * self.batch_bases:
-                    yield from flush_all()
-                    budget = 0
+            for block in blocks:
+                self.read_blocks += 1
+                n = len(block)
+                lens = np.diff(block.offsets)
+                device = (lens >= self.k) & (lens <= self.MAX_PAD)
+                log_pad = self._pad_log2(lens)
+                bucket_of = np.where(device, 2 * log_pad + block.has_n, -1)
+                pads = np.where(device, np.left_shift(1, log_pad), 0)
+                block_names, block_lens = block.names, lens.tolist()
+                block_rows = block.rows()
+                s = 0
+                while s < n:
+                    seg = bucket_of[s:]
+                    filled = np.cumsum(pads[s:])
+                    # the last read of the segment: the budget's crossing,
+                    # a bucket's filling, or the block's end
+                    over = np.flatnonzero(filled >= limit - budget)
+                    e = int(over[0]) if len(over) else n - s - 1
+                    found, first = np.unique(seg, return_index=True)
+                    order = np.argsort(first)
+                    per_code = []
+                    for code, at in zip(found[order].tolist(),
+                                        first[order].tolist()):
+                        pos = np.flatnonzero(seg == code)
+                        if code >= 0:
+                            need = full_height(code) - len(
+                                buckets.get(code, ()))
+                            if len(pos) >= need:
+                                e = min(e, int(pos[need - 1]))
+                        per_code.append((code, at, pos))
+                    base = len(names)
+                    names.extend(block_names[s : s + e + 1])
+                    read_lens.extend(block_lens[s : s + e + 1])
+                    read_codes.extend(block_rows[s : s + e + 1])
+                    for code, at, pos in per_code:
+                        if at > e:
+                            break
+                        taken = (pos[: np.searchsorted(pos, e, "right")]
+                                 + base).tolist()
+                        if code < 0:
+                            for i in taken:
+                                results[i] = _Remap(read_codes[i])
+                        else:
+                            buckets.setdefault(code, []).extend(taken)
+                    budget += int(filled[e])
+                    last = int(seg[e])
+                    s += e + 1
+                    if last >= 0 and len(buckets[last]) >= full_height(last):
+                        flush_bucket(last, buckets[last])
+                        buckets[last] = []
+                        yield from ready_results()
+                    if budget >= limit:
+                        yield from flush_all()
+                        budget = 0
+                yield from ready_results()
             yield from flush_all()
         finally:
             pipe.close()

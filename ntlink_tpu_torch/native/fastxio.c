@@ -11,12 +11,19 @@
  *     iterator of (name: str, comment: str | None, payload: bytes,
  *                  qual: bytes | None)
  *     payload is the raw sequence (codes=False) or the encoded code bytes.
+ *   Reader.read_block(max_bases, max_records)   (codes=True only)
+ *     the next records, up to the first that brings their bases to
+ *     max_bases or their count to max_records, as (names: list[str],
+ *     codes: bytes back to back, offsets: bytes of int64 (n + 1),
+ *     has_n: bytes of one 0/1 per record, 1 where a code is above 3);
+ *     None at the end of the file. Quality is parsed by length alone.
  *
  * The whole record parse — zlib inflate, line splitting, 2-bit encoding —
  * runs with the GIL RELEASED (the reference gets the same effect from
  * pigz -p + a separate indexlr process; ntLink:112-117,221-225). Only the
  * final Python object construction holds the GIL, so reader threads
- * decompress genuinely in parallel with host-side chaining/tally work.
+ * decompress genuinely in parallel with host-side chaining/tally work; a
+ * block takes the GIL once for all of its records.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
@@ -49,8 +56,17 @@ typedef struct {
     char *pending;
     size_t pending_len;
     int pending_is_fastq;
-    /* per-record scratch, reused across records */
+    /* scratch, reused across records and blocks */
     DynBuf line;
+    DynBuf seq;
+    DynBuf qual;
+    /* read_block's block: codes, names, int64 code and name offsets,
+     * has-N flags */
+    DynBuf blk_codes;
+    DynBuf blk_names;
+    DynBuf blk_offs;
+    DynBuf blk_noffs;
+    DynBuf blk_hasn;
 } ReaderObject;
 
 static int dyn_reserve(DynBuf *b, size_t extra)
@@ -96,36 +112,49 @@ static int fill_buffer(ReaderObject *self)
     return 0;
 }
 
-/* Append the next line (without trailing newline) into out.
- * Returns 1 on line read, 0 on EOF, negative code on error. */
-static int read_line(ReaderObject *self, DynBuf *out)
+/* Append the next line (without trailing newline) to out, or only count
+ * it where out is NULL; *len_out is its length. Returns 1 on line read, 0
+ * on EOF, negative code on error. */
+static int next_line(ReaderObject *self, DynBuf *out, size_t *len_out)
 {
-    out->len = 0;
+    size_t n = 0;
     int got_any = 0;
     for (;;) {
         if (self->buf_pos >= self->buf_len) {
             if (fill_buffer(self) < 0)
                 return -1;
-            if (self->buf_len == 0)
+            if (self->buf_len == 0) {
+                *len_out = n;
                 return got_any ? 1 : 0;
+            }
         }
         unsigned char *start = self->buf + self->buf_pos;
         size_t avail = self->buf_len - self->buf_pos;
         unsigned char *nl = memchr(start, '\n', avail);
         size_t span = nl ? (size_t)(nl - start) : avail;
-        if (span) {
+        if (span && out) {
             if (dyn_reserve(out, span) < 0)
                 return -2;
             memcpy(out->data + out->len, start, span);
             out->len += span;
         }
+        n += span;
         got_any = 1;
         if (nl) {
             self->buf_pos += span + 1;
+            *len_out = n;
             return 1;
         }
         self->buf_pos += span;
     }
+}
+
+/* The next line (without trailing newline) in out, from its start. */
+static int read_line(ReaderObject *self, DynBuf *out)
+{
+    size_t n;
+    out->len = 0;
+    return next_line(self, out, &n);
 }
 
 /* -- Reader type -------------------------------------------------------- */
@@ -137,6 +166,13 @@ static void Reader_dealloc(ReaderObject *self)
     free(self->buf);
     free(self->pending);
     dyn_free(&self->line);
+    dyn_free(&self->seq);
+    dyn_free(&self->qual);
+    dyn_free(&self->blk_codes);
+    dyn_free(&self->blk_names);
+    dyn_free(&self->blk_offs);
+    dyn_free(&self->blk_noffs);
+    dyn_free(&self->blk_hasn);
     Py_TYPE(self)->tp_free((PyObject *)self);
 }
 
@@ -156,8 +192,7 @@ static PyObject *Reader_new(PyTypeObject *type, PyObject *args, PyObject *kwds)
     self->buf_len = self->buf_pos = 0;
     self->pending = NULL;
     self->pending_len = 0;
-    self->line.data = NULL;
-    self->line.len = self->line.cap = 0;
+    /* tp_alloc zeroes the object: every DynBuf starts empty */
     self->buf = malloc(CHUNK);
     if (!self->buf) {
         Py_DECREF(self);
@@ -173,23 +208,34 @@ static PyObject *Reader_new(PyTypeObject *type, PyObject *args, PyObject *kwds)
     return (PyObject *)self;
 }
 
-static void encode_inplace(char *seq, size_t n)
+/* Encode seq[0:n] in place; nonzero where a code is above 3 (not ACGT). */
+static int encode_inplace(char *seq, size_t n)
 {
-    for (size_t i = 0; i < n; i++)
-        seq[i] = (char)CODE_TAB[(unsigned char)seq[i]];
+    unsigned char bad = 0;
+    for (size_t i = 0; i < n; i++) {
+        unsigned char c = CODE_TAB[(unsigned char)seq[i]];
+        seq[i] = (char)c;
+        bad |= c;
+    }
+    return (bad & 4) != 0;
 }
 
 /* Parse one full record without touching the Python API (GIL-free).
  * Returns 1 on record, 0 on EOF, -1 on IO error, -2 on OOM. On success
- * *header_out is malloc'd (caller frees); seq/qual are caller-owned
- * DynBufs. Sequence codes are encoded in place when self->codes. */
+ * *header_out is malloc'd (caller frees). The sequence is appended to
+ * `seq` from seq->len on (encoded in place when self->codes, and
+ * *has_n_out set where a code is above 3); the quality is appended to
+ * `qual`, or only its length counted where qual is NULL. Where the record
+ * fails, seq keeps its length from before. */
 static int parse_record(ReaderObject *self, char **header_out,
                         size_t *header_len_out, DynBuf *seq, DynBuf *qual,
-                        int *have_qual_out)
+                        int *have_qual_out, int *has_n_out)
 {
     DynBuf *line = &self->line;
     char *header = NULL;
     size_t header_len = 0;
+    size_t seq0 = seq->len;
+    size_t n;
     int rc;
 
     /* find the record header */
@@ -213,85 +259,81 @@ static int parse_record(ReaderObject *self, char **header_out,
         }
     }
 
-    /* read sequence lines until the next header or '+' */
+    /* sequence lines, each straight into seq, until the next header or
+     * '+' (which is taken back out of seq) */
     int next_is_plus = 0;
     for (;;) {
-        rc = read_line(self, line);
+        size_t at = seq->len;
+        rc = next_line(self, seq, &n);
         if (rc < 0)
             goto error;
         if (rc == 0)
             break;
-        if (line->len &&
-            (line->data[0] == '>' || line->data[0] == '@' ||
-             line->data[0] == '+')) {
-            if (line->data[0] == '+') {
+        char c0 = n ? seq->data[at] : 0;
+        if (c0 == '>' || c0 == '@' || c0 == '+') {
+            if (c0 == '+') {
                 next_is_plus = 1;
             } else {
-                self->pending = malloc(line->len);
+                self->pending = malloc(n);
                 if (!self->pending) {
                     rc = -2;
                     goto error;
                 }
-                memcpy(self->pending, line->data + 1, line->len - 1);
-                self->pending_len = line->len - 1;
+                memcpy(self->pending, seq->data + at + 1, n - 1);
+                self->pending_len = n - 1;
             }
+            seq->len = at;
             break;
         }
-        if (dyn_reserve(seq, line->len) < 0) {
-            rc = -2;
-            goto error;
-        }
-        memcpy(seq->data + seq->len, line->data, line->len);
-        seq->len += line->len;
     }
+    size_t seq_len = seq->len - seq0;
 
     int have_qual = 0;
     if (next_is_plus) {
         /* FASTQ: read quality until it covers the sequence */
-        while (qual->len < seq->len) {
-            rc = read_line(self, line);
+        size_t qlen = 0;
+        while (qlen < seq_len) {
+            rc = next_line(self, qual, &n);
             if (rc < 0)
                 goto error;
             if (rc == 0)
                 break;
-            if (dyn_reserve(qual, line->len) < 0) {
-                rc = -2;
-                goto error;
-            }
-            memcpy(qual->data + qual->len, line->data, line->len);
-            qual->len += line->len;
+            qlen += n;
         }
-        have_qual = qual->len >= seq->len;
+        have_qual = qlen >= seq_len;
     }
 
+    int has_n = 0;
     if (self->codes)
-        encode_inplace(seq->data, seq->len);
+        has_n = encode_inplace(seq->data + seq0, seq_len);
     *header_out = header;
     *header_len_out = header_len;
     *have_qual_out = have_qual;
+    *has_n_out = has_n;
     return 1;
 
 error:
+    seq->len = seq0;
     free(header);
     return rc;
 }
 
 static PyObject *Reader_iternext(ReaderObject *self)
 {
-    DynBuf seq = {0};
-    DynBuf qual = {0};
+    DynBuf *seq = &self->seq;
+    DynBuf *qual = &self->qual;
     char *header = NULL;
     size_t header_len = 0;
-    int have_qual = 0;
+    int have_qual = 0, has_n = 0;
     int rc;
 
+    seq->len = qual->len = 0;
     Py_BEGIN_ALLOW_THREADS
-    rc = parse_record(self, &header, &header_len, &seq, &qual, &have_qual);
+    rc = parse_record(self, &header, &header_len, seq, qual, &have_qual,
+                      &has_n);
     Py_END_ALLOW_THREADS
 
     if (rc <= 0) {
-        dyn_free(&seq);
-        dyn_free(&qual);
         if (rc == 0)
             PyErr_SetNone(PyExc_StopIteration);
         else if (rc == -2)
@@ -318,10 +360,10 @@ static PyObject *Reader_iternext(ReaderObject *self)
         comment = Py_None;
         Py_INCREF(Py_None);
     }
-    PyObject *payload = PyBytes_FromStringAndSize(seq.data, seq.len);
+    PyObject *payload = PyBytes_FromStringAndSize(seq->data, seq->len);
     PyObject *qual_obj;
     if (have_qual) {
-        qual_obj = PyBytes_FromStringAndSize(qual.data, qual.len);
+        qual_obj = PyBytes_FromStringAndSize(qual->data, qual->len);
     } else {
         qual_obj = Py_None;
         Py_INCREF(Py_None);
@@ -334,10 +376,126 @@ static PyObject *Reader_iternext(ReaderObject *self)
     Py_XDECREF(payload);
     Py_XDECREF(qual_obj);
     free(header);
-    dyn_free(&seq);
-    dyn_free(&qual);
     return result;
 }
+
+static int dyn_put_i64(DynBuf *b, int64_t v)
+{
+    if (dyn_reserve(b, sizeof v) < 0)
+        return -2;
+    memcpy(b->data + b->len, &v, sizeof v);
+    b->len += sizeof v;
+    return 0;
+}
+
+/* read_block's parse (GIL-free): records into the block buffers until
+ * their bases reach max_bases or their count max_records. Returns 0 with
+ * *n_out records (0 at the end of the file), or a negative code. */
+static int parse_block(ReaderObject *self, size_t max_bases,
+                       size_t max_records, size_t *n_out)
+{
+    DynBuf *codes = &self->blk_codes, *names = &self->blk_names;
+    size_t n = 0;
+    codes->len = names->len = self->blk_offs.len = self->blk_noffs.len =
+        self->blk_hasn.len = 0;
+    if (dyn_put_i64(&self->blk_offs, 0) < 0 ||
+        dyn_put_i64(&self->blk_noffs, 0) < 0)
+        return -2;
+    while (n < max_records && codes->len < max_bases) {
+        char *header = NULL;
+        size_t header_len = 0;
+        int have_qual, has_n;
+        int rc = parse_record(self, &header, &header_len, codes, NULL,
+                              &have_qual, &has_n);
+        if (rc < 0)
+            return rc;
+        if (rc == 0)
+            break;
+        size_t sp = 0;
+        while (sp < header_len && header[sp] != ' ' && header[sp] != '\t')
+            sp++;
+        rc = dyn_reserve(names, sp ? sp : 1);
+        if (rc == 0) {
+            memcpy(names->data + names->len, header, sp);
+            names->len += sp;
+        }
+        free(header);
+        if (rc < 0 || dyn_reserve(&self->blk_hasn, 1) < 0 ||
+            dyn_put_i64(&self->blk_offs, (int64_t)codes->len) < 0 ||
+            dyn_put_i64(&self->blk_noffs, (int64_t)names->len) < 0)
+            return -2;
+        self->blk_hasn.data[self->blk_hasn.len++] = (char)(has_n != 0);
+        n++;
+    }
+    *n_out = n;
+    return 0;
+}
+
+static PyObject *Reader_read_block(ReaderObject *self, PyObject *args)
+{
+    Py_ssize_t max_bases, max_records;
+    if (!PyArg_ParseTuple(args, "nn", &max_bases, &max_records))
+        return NULL;
+    if (!self->codes) {
+        PyErr_SetString(PyExc_ValueError, "read_block needs codes=True");
+        return NULL;
+    }
+    if (max_bases < 1 || max_records < 1) {
+        PyErr_SetString(PyExc_ValueError,
+                        "max_bases and max_records must be positive");
+        return NULL;
+    }
+    size_t n = 0;
+    int rc;
+    Py_BEGIN_ALLOW_THREADS
+    rc = parse_block(self, (size_t)max_bases, (size_t)max_records, &n);
+    Py_END_ALLOW_THREADS
+    if (rc < 0) {
+        if (rc == -2)
+            PyErr_NoMemory();
+        else
+            PyErr_SetString(PyExc_IOError, "gzread failed");
+        return NULL;
+    }
+    if (n == 0)
+        Py_RETURN_NONE;
+
+    const int64_t *noffs = (const int64_t *)self->blk_noffs.data;
+    PyObject *names = PyList_New((Py_ssize_t)n);
+    if (!names)
+        return NULL;
+    for (size_t i = 0; i < n; i++) {
+        PyObject *name = PyUnicode_DecodeASCII(
+            self->blk_names.data + noffs[i], noffs[i + 1] - noffs[i],
+            "replace");
+        if (!name) {
+            Py_DECREF(names);
+            return NULL;
+        }
+        PyList_SET_ITEM(names, (Py_ssize_t)i, name);
+    }
+    PyObject *codes = PyBytes_FromStringAndSize(self->blk_codes.data,
+                                                self->blk_codes.len);
+    PyObject *offs = PyBytes_FromStringAndSize(self->blk_offs.data,
+                                               self->blk_offs.len);
+    PyObject *has_n = PyBytes_FromStringAndSize(self->blk_hasn.data,
+                                                self->blk_hasn.len);
+    PyObject *result = NULL;
+    if (codes && offs && has_n)
+        result = PyTuple_Pack(4, names, codes, offs, has_n);
+    Py_DECREF(names);
+    Py_XDECREF(codes);
+    Py_XDECREF(offs);
+    Py_XDECREF(has_n);
+    return result;
+}
+
+static PyMethodDef reader_methods[] = {
+    {"read_block", (PyCFunction)Reader_read_block, METH_VARARGS,
+     "read_block(max_bases, max_records) -> (names, codes, offsets, has_n) "
+     "or None at the end"},
+    {NULL, NULL, 0, NULL},
+};
 
 static PyTypeObject ReaderType = {
     PyVarObject_HEAD_INIT(NULL, 0)
@@ -348,6 +506,7 @@ static PyTypeObject ReaderType = {
     .tp_doc = "Streaming FASTA/FASTQ(.gz) reader",
     .tp_iter = PyObject_SelfIter,
     .tp_iternext = (iternextfunc)Reader_iternext,
+    .tp_methods = reader_methods,
     .tp_new = Reader_new,
 };
 

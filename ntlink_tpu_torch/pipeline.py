@@ -57,7 +57,7 @@ from .parallel.distributed import (
 )
 from .pairs import PairTally, tally_from_checkpoint
 from .seqio import stream_fastx
-from .seqio.fastx import prefetch_files, stream_codes
+from .seqio.fastx import prefetch_files, stream_code_blocks, stream_codes
 from .sketch import get_backend, sketch_fasta_to_tsv
 from .stream_pipeline import PhaseTimer
 from .tracing import GLOBAL as tracer
@@ -233,11 +233,28 @@ def _repeat_filter_batch(offs, arrays, hi, lo):
     return new_offs, [a[keep] for a in arrays]
 
 
-def _stream_timers(cfg):
-    """One ``PhaseTimer`` per read file (NTLINK_TIMING=1, read once), and
-    the `timers` argument of `prefetch_files` (None when off)."""
+def _file_codes(cfg, mapper):
+    """(reads file, the ``PhaseTimer`` of its stream, its codes) per read
+    file, in order, up to cfg.t files parsing at once on background
+    threads (pigz-equivalent; file order preserved for the order-sensitive
+    verbose/tally artifacts). A TorchMapper's stream takes the codes in
+    blocks of `TorchMapper.BLOCK_BASES` bases (`stream_code_blocks`), any
+    other mapper's (`HostMapper`, `HybridMapper`) as (name, codes)
+    pairs. The timers are on with NTLINK_TIMING=1, read once; the parser
+    threads key their parse in them too."""
     timers = [PhaseTimer.from_env() for _ in cfg.reads]
-    return timers, (timers if timers and timers[0].on else None)
+    reader_timers = timers if timers and timers[0].on else None
+    if isinstance(mapper, TorchMapper):
+        def make_iter(path):
+            return stream_code_blocks(path, mapper.BLOCK_BASES)
+        depth = mapper.blocks_ahead
+    else:
+        make_iter, depth = stream_codes, 256
+    for (reads_file, codes), timer in zip(prefetch_files(
+        cfg.reads, make_iter, threads=cfg.t, depth=depth,
+        timers=reader_timers
+    ), timers):
+        yield reads_file, timer, codes
 
 
 def _held_stream(mapper, timer: PhaseTimer):
@@ -339,16 +356,10 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
         g_lens.clear()
         g_raw.clear()
 
-    # parallel decompression: up to cfg.t read files parse concurrently on
-    # background threads (pigz-equivalent; file order preserved for the
-    # order-sensitive verbose/tally artifacts)
-    timers, reader_timers = _stream_timers(cfg)
-    for (reads_file, codes_iter), timer in zip(prefetch_files(
-        cfg.reads, stream_codes, threads=cfg.t, timers=reader_timers
-    ), timers):
+    for reads_file, timer, codes in _file_codes(cfg, mapper):
         log("Mapping reads", reads_file, "(native batch chain)")
         with _held_stream(mapper, timer):
-            for name, read_len, raw in mapper.map_stream_raw(codes_iter):
+            for name, read_len, raw in mapper.map_stream_raw(codes):
                 n_reads += 1
                 g_names.append(name)
                 g_lens.append(read_len)
@@ -370,14 +381,11 @@ def _map_reads_runs(cfg, mapper, tally):
     multi-run read's tally is keyed in the stream's timer as tally."""
     names = mapper.contig_names
     n_reads = 0
-    timers, reader_timers = _stream_timers(cfg)
-    for (reads_file, codes_iter), timer in zip(prefetch_files(
-        cfg.reads, stream_codes, threads=cfg.t, timers=reader_timers
-    ), timers):
+    for reads_file, timer, codes in _file_codes(cfg, mapper):
         log("Mapping reads", reads_file, "(runs-only payload)")
         timing = timer.on
         with _held_stream(mapper, timer):
-            for name, read_len, raw in mapper.map_stream_raw(codes_iter):
+            for name, read_len, raw in mapper.map_stream_raw(codes):
                 n_reads += 1
                 if raw is None or raw[0] < 2:
                     continue

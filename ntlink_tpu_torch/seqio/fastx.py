@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import gzip
 import io
+import sys
 from dataclasses import dataclass
 from typing import Iterator, Iterable, Optional
 
@@ -79,6 +80,84 @@ def stream_codes(path: str):
 
     for rec in stream_fastx(path, native=False):
         yield rec.name, nthash_np.encode(rec.seq)
+
+
+class CodeBlock:
+    """Consecutive records of a read stream in one piece, as
+    `stream_code_blocks` and `code_blocks` make them: `names` (str per
+    record), `codes` (their base codes back to back, uint8), `offsets`
+    (int64, one more than the records: record i's codes are
+    ``codes[offsets[i]:offsets[i + 1]]``) and `has_n` (bool per record: a
+    code above 3, a base other than ACGT)."""
+
+    __slots__ = ("names", "codes", "offsets", "has_n")
+
+    def __init__(self, names, codes, offsets, has_n):
+        self.names, self.codes = names, codes
+        self.offsets, self.has_n = offsets, has_n
+
+    def __len__(self) -> int:
+        return len(self.names)
+
+    def rows(self) -> list:
+        """Each record's codes, a view into `codes`."""
+        codes, bounds = self.codes, self.offsets.tolist()
+        return [codes[a:b] for a, b in zip(bounds, bounds[1:])]
+
+    @classmethod
+    def from_rows(cls, names, rows) -> "CodeBlock":
+        """The block of records `names` with codes `rows` (uint8 arrays)."""
+        import numpy as np
+
+        offsets = np.zeros(len(rows) + 1, np.int64)
+        np.cumsum([len(r) for r in rows], out=offsets[1:])
+        codes = np.concatenate(rows).astype(np.uint8, copy=False)
+        bad = np.zeros(len(codes) + 1, np.int64)
+        np.cumsum(codes > 3, out=bad[1:])
+        return cls(list(names), codes, offsets,
+                   bad[offsets[1:]] > bad[offsets[:-1]])
+
+
+def code_blocks(named_codes, block_bases: int, block_reads: int = 0):
+    """Group (name, uint8 codes) records into `CodeBlock`s: each block ends
+    with the record that brings its bases to `block_bases` or its records
+    to `block_reads` (0: no cap), or with the last record."""
+    names, rows, bases = [], [], 0
+    for name, codes in named_codes:
+        names.append(name)
+        rows.append(codes)
+        bases += len(codes)
+        if bases >= block_bases or len(rows) == block_reads:
+            yield CodeBlock.from_rows(names, rows)
+            names, rows, bases = [], [], 0
+    if rows:
+        yield CodeBlock.from_rows(names, rows)
+
+
+def stream_code_blocks(path: str, block_bases: int, block_reads: int = 0):
+    """Yield the records of `stream_codes(path)` in `CodeBlock`s, cut as
+    `code_blocks` cuts them. The native reader parses and encodes a whole
+    block with the interpreter lock released once, straight into one
+    buffer, and flags the records with a non-ACGT base as it encodes; the
+    fallback groups the pure-Python parser's records."""
+    import numpy as np
+
+    from ..native import fastx_module
+
+    mod = fastx_module()
+    if mod is None:
+        yield from code_blocks(stream_codes(path), block_bases, block_reads)
+        return
+    reader = mod.Reader(path, codes=True)
+    cap = block_reads or sys.maxsize
+    while True:
+        got = reader.read_block(block_bases, cap)
+        if got is None:
+            return
+        names, codes, offsets, has_n = got
+        yield CodeBlock(names, np.frombuffer(codes, np.uint8),
+                        np.frombuffer(offsets, np.int64),
+                        np.frombuffer(has_n, np.bool_))
 
 
 def scan_selected_reads(path: str, wanted):
@@ -199,8 +278,9 @@ def prefetch_files(paths, make_iter, threads: int = 1, depth: int = 256,
     """Yield `(path, record-iterator)` in input order while parsing up to
     `threads` files concurrently on background threads. `timers`: a
     ``stream_pipeline.PhaseTimer`` per path, in which the file's parser
-    thread times each record's parse as ``reader_parse``, and its whole CPU
-    as the thread ``reader`` (NTLINK_TIMING=1).
+    thread times each item's parse (a record's, or a block's) as
+    ``reader_parse``, and its whole CPU as the thread ``reader``
+    (NTLINK_TIMING=1). `depth` counts items.
 
     The pigz-equivalent of the reference pipeline (parallel decompression,
     reference ntLink:112-117): file i is consumed in order — so every

@@ -27,6 +27,11 @@ daemon threads the process does not wait on.
   drainer:  drain_flat_wait, drain_decode
   reader:   reader_parse (seqio.fastx.prefetch_files' parser thread)
 
+The reads cross from the reader to the stream in blocks
+(``seqio.fastx.CodeBlock``), so reader_parse and reader_pull open once per
+block; read_prep is the stream's own time: its intake of each block and
+its delivery of each read.
+
 group_gather, chain_render, verbose_write and the native consumer's tally
 open once per read group, each in a ``ntlink/<key>`` `record_function`
 range while a torch profiler records. The thread's CPU seconds
@@ -34,12 +39,13 @@ range while a torch profiler records. The thread's CPU seconds
 ``# ntlink cpu:`` line) tell work apart from waits: on a queue, a device,
 or the interpreter lock while another thread runs Python. The keys timed
 at most once per batch, flush, remap or group carry their CPU beside their
-wall. The per-read keys (reader_pull, read_prep, reader_parse, the
-runs-only consumer's tally) carry none: a thread CPU clock can be a system
-call (2.7 us a read of it, in 10 ms steps, on an H100 host), and reading
-it twice a read slows the stream it splits; the producer's and the
-reader's whole CPU in the stream stand in for them. h2d_put and
-drain_flat_wait, timed with the wire's byte counts, carry none either.
+wall. The keys timed per block or per read (reader_pull, read_prep,
+reader_parse, the runs-only consumer's tally) carry none: a thread CPU
+clock can be a system call (2.7 us a read of it, in 10 ms steps, on an
+H100 host), and reading it twice a read slows the stream it splits; the
+producer's and the reader's whole CPU in the stream stand in for them.
+h2d_put and drain_flat_wait, timed with the wire's byte counts, carry
+none either.
 """
 from __future__ import annotations
 
@@ -154,13 +160,14 @@ class PhaseTimer:
 
     #: the read stream's keys, by the thread that each is timed on. The
     #: producer is the thread that iterates the stream (the main thread):
-    #: `TorchMapper.map_stream_raw`'s own keys (`read_prep` is its time
-    #: outside the other keys there: encode check, bucketing, pending
-    #: bookkeeping, ready_results), then those of the consumer in
-    #: ``pipeline`` (`tally` in both consumers, the others in the native
-    #: one). The reader is the thread that parses the stream's file
-    #: (``seqio.fastx.prefetch_files``); it may start before the stream,
-    #: by the records its queue holds.
+    #: `TorchMapper.map_stream_raw`'s own keys (`reader_pull` is one per
+    #: block; `read_prep` is its time outside the other keys there: each
+    #: block's intake, bucketing and bookkeeping, and each read's
+    #: delivery), then those of the consumer in ``pipeline`` (`tally` in
+    #: both consumers, the others in the native one). The reader is the
+    #: thread that parses the stream's file
+    #: (``seqio.fastx.prefetch_files``; `reader_parse` is one per block);
+    #: it may start before the stream, by the blocks its queue holds.
     THREADS = {
         "producer": ("reader_pull", "read_prep", "host_remap", "pack",
                      "feed_enqueue_wait", "flush_join", "group_gather",

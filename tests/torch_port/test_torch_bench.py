@@ -23,6 +23,8 @@ from ntlink_tpu.index import ContigIndex as JaxIndex
 from ntlink_tpu.ops import nthash_np as jax_nthash
 from ntlink_tpu_torch import bench
 from ntlink_tpu_torch.config import ScaffoldConfig
+from ntlink_tpu_torch.device_map import TorchMapper
+from ntlink_tpu_torch.seqio.fastx import stream_code_blocks
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -109,7 +111,10 @@ def test_device_run_legs_match_each_other_and_the_jax_package(
     leg = detail["device_leg"]
     assert leg["runs"] == bench.DEVICE_RUNS == len(leg["seconds"])
     n_batches = leg["timing"]["dispatch"][1]
-    assert n_batches > 1 and leg["timing"]["reader_pull"][1] == 300
+    # the reads file comes in blocks: one pull a block
+    blocks = sum(1 for _ in stream_code_blocks(str(reads_fa),
+                                               TorchMapper.BLOCK_BASES))
+    assert n_batches > 1 and leg["timing"]["reader_pull"][1] == blocks
     pad = 8192
     assert leg["batches_by_pad"] == {
         (pad, False): bench.DEVICE_RUNS * n_batches}

@@ -10,8 +10,10 @@ from ntlink_tpu.device_map import DeviceMapper
 from ntlink_tpu.host_map import HostMapper
 from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.ops import nthash_np
+from ntlink_tpu_torch import device_map
 from ntlink_tpu_torch.chain import CHAIN_MAX_CONTIGS
-from ntlink_tpu_torch.device_map import TorchMapper
+from ntlink_tpu_torch.device_map import TorchMapper, batch_rows
+from ntlink_tpu_torch.seqio.fastx import CodeBlock
 
 K, W = 32, 100
 
@@ -172,6 +174,100 @@ def test_slot_overflow_rows_remap_on_host():
         _same(a, b)
     assert tm.host_fallbacks > 6 + 10
     assert tm.device_reads + tm.host_fallbacks == len(reads)
+
+
+def _per_read_flushes(mapper, reads):
+    """The batches that the stream's flush rule makes, taken one read at a
+    time: [(flush, read index, (pad, has N), rows)] in dispatch order. A
+    device read joins its (pad, has N) bucket, which flushes (`bucket`) at
+    `batch_rows` reads; every 4 x batch_bases of padded device reads every
+    bucket flushes (`budget`), and so do the rest at the end (`end`)."""
+    out, buckets, budget = [], {}, 0
+    limit = 4 * mapper.batch_bases
+    for i, (_, codes) in enumerate(reads):
+        if not mapper.k <= len(codes) <= mapper.MAX_PAD:
+            continue
+        pad = mapper._pad_len(len(codes))
+        key = (pad, bool((codes > 3).any()))
+        bucket = buckets.setdefault(key, [])
+        bucket.append(i)
+        if len(bucket) == batch_rows(pad, mapper.batch_bases):
+            out.append(("bucket", i, key, len(bucket)))
+            buckets[key] = []
+        budget += pad
+        if budget >= limit:
+            out += [("budget", i, k, len(b)) for k, b in buckets.items() if b]
+            buckets, budget = {}, 0
+    return out + [("end", len(reads) - 1, k, len(b))
+                  for k, b in buckets.items() if b]
+
+
+def _cut(reads, ends):
+    """`reads` in `CodeBlock`s, one ending after each index in `ends`."""
+    bounds = sorted({e + 1 for e in ends if 0 <= e < len(reads) - 1})
+    return [CodeBlock.from_rows([n for n, _ in reads[a:b]],
+                                [c for _, c in reads[a:b]])
+            for a, b in zip([0] + bounds, bounds + [len(reads)])]
+
+
+def _dispatched(monkeypatch):
+    """[((pad, has N), rows)] of every batch packed from now on, in order."""
+    seen, real = [], device_map.pack_batch
+
+    def pack(row_codes, B, pad, has_n):
+        seen.append(((pad, has_n), len(row_codes)))
+        return real(row_codes, B, pad, has_n)
+
+    monkeypatch.setattr(device_map, "pack_batch", pack)
+    return seen
+
+
+@pytest.mark.parametrize("cut", [
+    "per-record pairs", "one read a block", "before a bucket flush",
+    "on a bucket flush", "after a bucket flush", "before a budget flush",
+    "on a budget flush", "after a budget flush"])
+def test_blocks_keep_the_per_read_flushes(cut, monkeypatch):
+    """Fed in blocks, however they are cut, the stream gives the payloads
+    of the same reads fed one (name, codes) pair at a time, byte for byte,
+    and makes the same batches in the same order: those of the flush rule
+    taken one read at a time (`_per_read_flushes`)."""
+    index, reads = _dataset()
+    bb = 16_384   # many bucket flushes and 4 x bb budget flushes
+    want_batches = _per_read_flushes(
+        TorchMapper(index, K, W, batch_bases=bb, device="cpu"), reads)
+    kinds = {kind for kind, *_ in want_batches}
+    assert {"bucket", "budget"} <= kinds
+    seen = _dispatched(monkeypatch)
+    by_pairs = TorchMapper(index, K, W, batch_bases=bb, device="cpu")
+    want = _raws(by_pairs, reads)
+    pair_batches = list(seen)
+    assert pair_batches == [(key, n) for *_, key, n in want_batches]
+    if cut == "per-record pairs":
+        got, tm = want, by_pairs
+    else:
+        if cut == "one read a block":
+            ends = range(len(reads))
+        else:
+            where, kind = cut.split(" a ")
+            step = {"before": -1, "on": 0, "after": 1}[where]
+            ends = [i + step for k, i, *_ in want_batches
+                    if k == kind.split()[0]]
+        blocks = _cut(reads, ends)
+        assert 1 < len(blocks) <= len(reads)
+        seen.clear()
+        tm = TorchMapper(index, K, W, batch_bases=bb, device="cpu")
+        got = list(tm.map_stream_raw(iter(blocks)))
+        assert tm.read_blocks == len(blocks)
+        assert seen == pair_batches
+    assert tm.batches_by_pad == by_pairs.batches_by_pad
+    assert len(got) == len(want) == len(reads)
+    for a, b in zip(got, want):
+        assert a[:2] == b[:2]
+        assert (a[2] is None) == (b[2] is None), a[0]
+        if a[2] is not None:
+            assert a[2][0] == b[2][0]
+            for x, y in zip(a[2][1:], b[2][1:]):
+                assert np.asarray(x).tobytes() == np.asarray(y).tobytes()
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,9 @@ import torch
 
 from ntlink_tpu_torch import pipeline, tracing
 from ntlink_tpu_torch.config import ScaffoldConfig
+from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.index import ContigIndex
+from ntlink_tpu_torch.seqio.fastx import stream_code_blocks
 from ntlink_tpu_torch.sketch import TorchHybridSketcher
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer
 
@@ -81,8 +83,13 @@ def test_stream_keys_through_the_consumers(consumer, tmp_path, monkeypatch,
     assert want <= set(timing), want - set(timing)
     assert set(timing) <= {k for keys in PhaseTimer.THREADS.values()
                            for k in keys}
-    for key in ("reader_pull", "read_prep", "reader_parse"):
-        assert timing[key][1] == n, key
+    # the reader hands the reads over in blocks: one parse and one pull a
+    # block, and one read_prep span a read delivered
+    blocks = sum(1 for _ in stream_code_blocks(cfg.reads[0],
+                                               TorchMapper.BLOCK_BASES))
+    for key in ("reader_pull", "reader_parse"):
+        assert timing[key][1] == blocks, key
+    assert timing["read_prep"][1] == n
     assert timing["host_remap"][1] >= 1
     if native:
         # one span per group, the last group's (after the stream's last

@@ -5,7 +5,10 @@ payloads are those of ``ntlink_tpu``'s exact host path
 (``DeviceMapper._host_map_raw``), across several pad buckets, several
 flushed batches per bucket, and sub-k reads between device reads; on one
 CPU device, on two, and on the hash grid. Each case also runs with
-NTLINK_TIMING=1. Every comparison is exact."""
+NTLINK_TIMING=1. Every comparison is exact. Through `pipeline.map_reads`
+the reads file comes in blocks, one reader hand-off a block."""
+import dataclasses
+import re
 import time
 
 import numpy as np
@@ -14,7 +17,14 @@ import pytest
 from ntlink_tpu.device_map import DeviceMapper
 from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.ops import nthash_np
-from ntlink_tpu_torch.device_map import TorchMapper
+from ntlink_tpu_torch import pipeline
+from ntlink_tpu_torch.bench import tally_contents
+from ntlink_tpu_torch.config import ScaffoldConfig
+from ntlink_tpu_torch.device_map import PAIR_BLOCK_READS, TorchMapper
+from ntlink_tpu_torch.index import ContigIndex as PortIndex
+from ntlink_tpu_torch.seqio.fastx import stream_code_blocks
+
+from .synthetic import write_dataset
 
 K, W = 32, 100
 
@@ -79,7 +89,9 @@ def test_incremental_delivery_order_and_parity(workload, layout, timing_env):
                                           np.asarray(b)[:n_e])
     assert mapper.host_fallbacks == sum(len(s) < K for _, s in reads)
     if timing_env:
-        assert mapper.last_timing["reader_pull"][1] == len(reads)
+        # one pull per block of the per-record reads
+        assert mapper.last_timing["reader_pull"][1] == -(
+            -len(reads) // PAIR_BLOCK_READS)
         assert mapper.last_timing["pack"][1] == \
             sum(mapper.batches_by_pad.values())
 
@@ -107,3 +119,43 @@ def test_results_surface_before_stream_end(workload, timing_env):
         break
     stream.close()
     assert first_at is not None and first_at < len(reads)
+
+
+def test_reader_hands_reads_over_in_blocks(tmp_path, monkeypatch, capfd):
+    """Through `pipeline.map_reads`, a TorchMapper takes the reads file in
+    blocks: one `reader_pull` and one `reader_parse` a block, the blocks
+    those of `stream_code_blocks`, at most one a 50 reads on a stream of
+    1,000 reads and more, and the stream's summary line gives the blocks
+    and the reads a block. The tally is the exact host path's."""
+    monkeypatch.setenv("NTLINK_TIMING", "1")
+    d = str(tmp_path)
+    write_dataset(d, seed=29, n_reads=1_000, read_len=(1_500, 3_000))
+    cfg = ScaffoldConfig(target=f"{d}/target.fa", reads=[f"{d}/reads.fa"],
+                         k=K, w=W, z=1000, t=4, batch_bases=200_000)
+    tsv = pipeline.ensure_contig_sketch_tsv(cfg, K, W, device="cpu")
+    index = PortIndex.from_tsv(tsv)
+    lengths = pipeline.read_scaffold_lengths(cfg.target)
+    mapper = pipeline.make_mapper(cfg, index, lengths, ["cpu"])
+    assert isinstance(mapper, TorchMapper)
+    tally = pipeline.map_reads(cfg, index, lengths, None, None, mapper)
+    n_reads = mapper.device_reads + mapper.host_fallbacks
+    assert n_reads == 1_002
+    blocks = sum(1 for _ in stream_code_blocks(cfg.reads[0],
+                                               TorchMapper.BLOCK_BASES))
+    timing = mapper.last_timing
+    assert timing["reader_pull"][1] == timing["reader_parse"][1] == \
+        mapper.read_blocks == blocks
+    assert 1 <= blocks <= n_reads / 50
+    assert timing["read_prep"][1] == n_reads
+    summary = re.findall(r"device-map .*: (\d+) read\(s\) in .* in (\d+) "
+                         r"block\(s\) of ([\d.]+) reads;",
+                         capfd.readouterr().err)
+    assert summary == [(str(n_reads), str(blocks),
+                        f"{n_reads / blocks:.1f}")]
+    # the runs-only consumer's tally, against the host mapper's
+    host_cfg = dataclasses.replace(cfg, backend="numpy")
+    host = pipeline.map_reads(
+        host_cfg, index, lengths, None, None,
+        pipeline.make_mapper(host_cfg, index, lengths, None))
+    want = tally_contents(host)
+    assert tally_contents(tally) == want and len(want) > 0

@@ -62,7 +62,9 @@ def test_timing_line_and_last_timing(monkeypatch, capsys):
     assert n_batches >= 8
     for key in PER_BATCH:
         assert parsed[key][1] == n_batches, key
-    assert parsed["reader_pull"][1] == len(reads)
+    # one pull per block of the per-record reads
+    assert parsed["reader_pull"][1] == tm.read_blocks == -(
+        -len(reads) // device_map.PAIR_BLOCK_READS)
     assert set(tm.last_timing) == set(KEYS)
     for key, (secs, spans) in tm.last_timing.items():
         assert spans == parsed[key][1]
@@ -80,7 +82,7 @@ def test_timing_line_and_last_timing(monkeypatch, capsys):
             _same(a, b)
     # a second stream replaces the first one's numbers
     _raws(tm, reads[:5])
-    assert tm.last_timing["reader_pull"][1] == 5
+    assert tm.last_timing["reader_pull"][1] == 1
 
 
 def test_timing_is_read_once_per_stream(monkeypatch, capsys):
