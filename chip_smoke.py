@@ -1627,10 +1627,10 @@ def phase_scale(dev, smi: str) -> dict:
         launches = sketch_cuda.launches
         table, mp = out["table"], out["mapping"]
         n_min = out["parse"]["minimizers"]
-        if n_min <= mapping_step.SMALL_TABLE_ENTRIES \
-                or table["regime"] != "load-4":
-            fail(f"phase 13: {n_min} minimizers, table in the "
-                 f"{table['regime']} regime")
+        if table["regime"] != "load-4" or table["entries"] != n_min:
+            fail(f"phase 13: {n_min} minimizers, a table of "
+                 f"{table['entries']} entries in the {table['regime']} "
+                 f"regime")
         if "sketch" in out or mp["launches"] == 0 \
                 or mp["launches"] != launches:
             fail(f"phase 13: the bounded run launched {launches} kernels, "

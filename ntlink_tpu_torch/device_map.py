@@ -58,6 +58,19 @@ adds the per-phase split of the hot loop (`last_timing`, and a
 ``NTLINK_PIPE_DEPTH`` sets the batches in flight (default `DEPTH`).
 With graphs, `h2d_s` is the copy into pinned memory alone: the upload's
 enqueue is in `dispatch`, with the replay.
+
+`join_stats` counts what the replicated table's bucket join
+(`mapping_step.hash_bucket_join`) does, over every stream: its `slots`
+(each device call's rows times the batch's slot budget S, padding rows
+and empty slots included: the join probes every slot), its `queries` (the
+valid minimizers among them, min(n_minimizers, S) a row from the
+payload's header, which reads S for a row whose runs overflow the run
+lanes; not counted from runs-only payloads, whose header holds no
+n_minimizers) and its `bucket_bytes` (slots x `max_probes` x 128 B of
+bucket rows gathered). They are counted only while the Tracer is on,
+once a device call, never once a read: each such stream's summary line
+gives its own, and they go to ``tracing.GLOBAL`` as a ``map/join`` count,
+as the table's `TableLayout` goes at ``table/build``.
 """
 from __future__ import annotations
 
@@ -67,7 +80,7 @@ import os
 import sys
 import threading
 import time
-from typing import Dict, Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,7 +90,7 @@ from . import step_graph, tracing
 from .chain import CHAIN_MAX_CONTIGS, RUN_LANES
 from .index import ContigIndex
 from .mapping import AnchorHit
-from .mapping_step import DeviceIndex, mapping_step, pack_codes
+from .mapping_step import BUCKET_BYTES, DeviceIndex, mapping_step, pack_codes
 from .native import chain_module, fastx_module, sketch_module
 from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
@@ -262,7 +275,8 @@ class TorchMapper:
                 for dev in self.devices:
                     if dev not in on_device:  # one copy per device
                         on_device[dev] = (
-                            DeviceIndex.from_numpy(*table, device=dev),
+                            DeviceIndex.from_numpy(*table, device=dev,
+                                                   layout=table.layout),
                             None if clen_np is None
                             else torch.from_numpy(clen_np).to(dev),
                         )
@@ -279,6 +293,7 @@ class TorchMapper:
             #: and table/upload (v=1)
             self.build_seconds = t1 - t0
             self.upload_seconds = t3 - t2
+            tracing.GLOBAL.count("table/build", **vars(self.didx.layout))
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0
@@ -294,6 +309,11 @@ class TorchMapper:
         #: drainer spent on them, over every stream (see the module's text);
         #: the feeder writes h2d and h2d_s, the drainer d2h and d2h_s
         self.wire_stats = {"h2d": 0, "d2h": 0, "h2d_s": 0.0, "d2h_s": 0.0}
+        #: the bucket join's slots, valid queries and bytes of bucket rows
+        #: gathered, over every stream the Tracer was on for (see the
+        #: module's text; replicated layout only); the feeder writes slots
+        #: and bucket_bytes, the drainer queries
+        self.join_stats = {"slots": 0, "queries": 0, "bucket_bytes": 0}
         #: NTLINK_TIMING=1: the last stream's {phase: (seconds, spans)};
         #: empty when the variable is unset
         self.last_timing: Dict[str, Tuple[float, int]] = {}
@@ -494,6 +514,7 @@ class TorchMapper:
         graphs0 = self.graph_counts()
         reads0 = self.device_reads + self.host_fallbacks
         blocks0 = self.read_blocks
+        join0 = dict(self.join_stats) if tracing.GLOBAL.enabled else None
         t0 = time.perf_counter()
         c0 = timer.cpu_now()
         try:
@@ -515,6 +536,7 @@ class TorchMapper:
                 "runs-only" if self.runs_only
                 else "prechained" if self.prechained else "host-chained"
             )
+            join = self._join_since(join0)
             print(
                 f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
                 f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
@@ -525,10 +547,28 @@ class TorchMapper:
                 f"on the device, batches by (pad, has N) "
                 f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
                 f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
-                f"run-lane overflow); "
+                f"run-lane overflow); {join}"
                 f"{step_graph.summary(self.graph_counts(), graphs0)}",
                 file=sys.stderr,
             )
+
+    def _join_since(self, join0: Optional[Dict[str, int]]) -> str:
+        """The bucket join's counts of the stream that began at `join0`
+        (None: not counted, the Tracer off), as a clause of the summary
+        line, and to ``tracing.GLOBAL``."""
+        if join0 is None or self.index_sharding == "hash":
+            return ""
+        layout = self.didx.layout
+        d = {key: self.join_stats[key] - join0[key] for key in join0}
+        if self.runs_only:
+            del d["queries"]
+        tracing.GLOBAL.count("map/join", **d, max_probes=layout.max_probes)
+        queries = ("queries not counted (runs-only payloads)"
+                   if self.runs_only else f"{d['queries']} valid queries")
+        return (f"bucket join ({layout.entries} entries in {layout.buckets} "
+                f"buckets, {layout.regime}, max_probes {layout.max_probes}): "
+                f"{d['slots']} slots, {queries}, {d['bucket_bytes']} bytes "
+                f"of buckets gathered; ")
 
     @contextlib.contextmanager
     def hold_stream(self, timer: PhaseTimer):
@@ -583,6 +623,8 @@ class TorchMapper:
         drain_enqueue_wait; drainer drain_flat_wait, drain_decode."""
         timing = timer.on
         wire = self.wire_stats
+        join = self.join_stats
+        count_join = tracing.GLOBAL.enabled
         # the reads since the last flush_all, by their index there
         names: List[str] = []
         read_lens: List[int] = []
@@ -684,6 +726,11 @@ class TorchMapper:
                                      with_hashes=self.with_hashes))
                         timer.mark("dispatch", ts)
                         rep.launches += sketch_cuda.launches - launches
+                        if count_join:
+                            join["slots"] += (hi - lo) * slots
+                            join["bucket_bytes"] += ((hi - lo) * slots
+                                                     * rep.didx.max_probes
+                                                     * BUCKET_BYTES)
                         blocks.append((*download(out), lo, hi))
             ts = timer.now()
             pipe.submit_drain((blocks, slots, rows, row_codes))
@@ -716,6 +763,9 @@ class TorchMapper:
                         planes[1:2] = [cid, cpos]
                 else:
                     count, n_mins = flat[:B], flat[B : 2 * B]
+                    if count_join and not self.runs_only:
+                        join["queries"] += int(
+                            np.minimum(n_mins, slots).sum())
                     lanes = B * (RUN_LANES if self.runs_only else slots)
                     planes = flat[2 * B :].reshape(-1, lanes)
                 drain_block(count, n_mins, planes, lo, min(hi, len(rows)),

@@ -32,6 +32,9 @@ budget) lost minimizers and must be remapped exactly on the host.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
 import numpy as np
 import torch
 from torch.profiler import record_function
@@ -70,6 +73,57 @@ def _stable_order(keys: np.ndarray, n_keys: int) -> np.ndarray:
     return order
 
 
+#: bytes of one bucket row: BUCKET entries of four uint32 words
+BUCKET_BYTES = 4 * BUCKET * 4
+
+
+@dataclass(frozen=True)
+class TableLayout:
+    """What `DeviceIndex.build_table` decided for one table: its entries,
+    its buckets, the entries a bucket was sized for (`load`: 2 up to
+    SMALL_TABLE_ENTRIES entries, 4 past it) and `max_probes`, the buckets
+    every query gathers: the insertion rounds the build took (an entry
+    placed in round r sits r - 1 buckets past its home bucket), 1 for an
+    empty table."""
+
+    entries: int
+    buckets: int
+    load: int
+    max_probes: int
+
+    @property
+    def regime(self) -> str:
+        return f"load-{self.load}"
+
+    @property
+    def table_bytes(self) -> int:
+        return self.buckets * BUCKET_BYTES
+
+    @property
+    def query_bytes(self) -> int:
+        """Table bytes `hash_bucket_join` gathers for one query slot."""
+        return self.max_probes * BUCKET_BYTES
+
+    def describe(self) -> str:
+        return (f"{self.entries} entries in {self.buckets} buckets of "
+                f"{BUCKET} ({self.regime}), max_probes {self.max_probes} "
+                f"({self.query_bytes} B gathered a query), "
+                f"{self.table_bytes} bytes")
+
+
+class BuiltTable(tuple):
+    """`DeviceIndex.build_table`'s (t_bkt, mask, max_probes), which
+    unpacks as the triple it always was, with its `layout`."""
+
+    layout: TableLayout
+
+    def __new__(cls, t_bkt: np.ndarray, layout: TableLayout):
+        self = super().__new__(cls, (t_bkt, layout.buckets - 1,
+                                     layout.max_probes))
+        self.layout = layout
+        return self
+
+
 class DeviceIndex:
     """Contig-minimizer hash table on the device (mesh.DeviceIndex layout).
 
@@ -77,18 +131,24 @@ class DeviceIndex:
     holding the uint32 bit patterns [hash_hi x8 | hash_lo x8 | cid_strand
     x8 | pos x8]; cid_strand = (cid + 1) << 1 | strand, 0 = empty. A full
     bucket spills to the next one; `max_probes` is the longest chain.
+    `layout` is the build's `TableLayout`, or None for a table built
+    elsewhere (the JAX package's).
     """
 
-    def __init__(self, t_bkt: torch.Tensor, mask: int, max_probes: int):
+    def __init__(self, t_bkt: torch.Tensor, mask: int, max_probes: int,
+                 layout: Optional[TableLayout] = None):
         self.t_bkt = t_bkt
         self.mask = int(mask)
         self.max_probes = int(max_probes)
+        self.layout = layout
 
     @staticmethod
     def build_table(hashes: np.ndarray, contig_ids: np.ndarray,
-                    positions: np.ndarray, strands: np.ndarray):
+                    positions: np.ndarray, strands: np.ndarray
+                    ) -> BuiltTable:
         """Host bucket build, bit-identical to mesh.DeviceIndex (:75-129).
-        Returns (t_bkt (nb, 32) uint32 ndarray, mask, max_probes)."""
+        Returns (t_bkt (nb, 32) uint32 ndarray, mask, max_probes), with
+        the table's `TableLayout` as `.layout`."""
         n = int(hashes.shape[0])
         load = (
             BUCKET_LOAD_SMALL if n <= SMALL_TABLE_ENTRIES else BUCKET_LOAD
@@ -137,11 +197,13 @@ class DeviceIndex:
             fill += np.bincount(pb, minlength=nb).astype(np.int32)
             pending = ps[~place]
             cur[pending] = (cur[pending] + 1) & bmask
-        return ent.reshape(nb, 4 * BUCKET), bmask, max(rounds, 1)
+        return BuiltTable(ent.reshape(nb, 4 * BUCKET),
+                          TableLayout(n, nb, load, max(rounds, 1)))
 
     @classmethod
     def from_numpy(cls, t_bkt: np.ndarray, mask: int, max_probes: int,
-                   device="cpu") -> "DeviceIndex":
+                   device="cpu", layout: Optional[TableLayout] = None
+                   ) -> "DeviceIndex":
         """Carry a built table (e.g. ``np.asarray(jax_index.t_bkt)``) onto
         `device`. A writeable C-contiguous uint32 table is uploaded as it
         is, with no host copy (2.1 GB at human scale; on the CPU the
@@ -150,19 +212,15 @@ class DeviceIndex:
         if not (t.flags.writeable and t.flags.c_contiguous):
             t = np.array(t)  # torch.from_numpy needs a writeable array
         return cls(torch.from_numpy(t.view(np.int32)).to(device), mask,
-                   max_probes)
+                   max_probes, layout)
 
     @classmethod
     def from_contig_index(cls, index, device="cpu") -> "DeviceIndex":
         """Build from a finalized ntlink_tpu.index.ContigIndex."""
         index.finalize()
-        return cls.from_numpy(
-            *cls.build_table(
-                index.hashes, index.contig_ids, index.positions,
-                index.strands,
-            ),
-            device=device,
-        )
+        table = cls.build_table(index.hashes, index.contig_ids,
+                                index.positions, index.strands)
+        return cls.from_numpy(*table, device=device, layout=table.layout)
 
 
 def _lo32_as_i32(x: torch.Tensor) -> torch.Tensor:

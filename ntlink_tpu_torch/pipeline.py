@@ -589,10 +589,8 @@ def _stage_mapper(cfg: ScaffoldConfig, index: ContigIndex, contig_lengths,
     (inside ``map_reads``), so that the table's spans nest there."""
     mapper = make_mapper(cfg, index, contig_lengths, devices)
     if last_mapper is not None and last_mapper.index_sharding != "hash":
-        didx = last_mapper.didx
-        log(f"Contig table: {didx.t_bkt.shape[0]} buckets, max_probes "
-            f"{didx.max_probes}, {didx.t_bkt.nbytes} bytes per device; "
-            f"built in {last_mapper.build_seconds:.1f} s, uploaded in "
+        log(f"Contig table: {last_mapper.didx.layout.describe()} per "
+            f"device; built in {last_mapper.build_seconds:.1f} s, uploaded in "
             f"{last_mapper.upload_seconds:.1f} s")
     return mapper
 

@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from . import device as device_mod
-from . import mapping_step, pipeline, step_graph
+from . import pipeline, step_graph
 from .config import ScaffoldConfig
 from .device_map import TorchMapper
 from .host_map import HostMapper
@@ -325,16 +325,14 @@ def bounded_run(d: str, n_reads: int = BOUNDED_READS, device=None,
                                     index.positions, index.strands)
     build_s = time.perf_counter() - t0
     t_bkt, mask, max_probes = table
-    regime = ("load-4" if n > mapping_step.SMALL_TABLE_ENTRIES
-              else "load-2")
-    out["table"] = {"seconds": build_s, "nb": int(t_bkt.shape[0]),
-                    "max_probes": int(max_probes), "regime": regime,
-                    "bytes": int(t_bkt.nbytes),
-                    "gather_width": int(max_probes) * BUCKET}
-    log(f"table build: {t_bkt.shape[0]} buckets of {BUCKET} ({regime}, "
-        f"{n / t_bkt.shape[0]:.2f} entries per bucket), max_probes "
-        f"{max_probes} (a join gathers {max_probes * BUCKET} entries per "
-        f"query), {t_bkt.nbytes} bytes, in {build_s:.1f} s")
+    layout = table.layout
+    out["table"] = {"seconds": build_s, "nb": layout.buckets,
+                    "entries": layout.entries,
+                    "max_probes": layout.max_probes,
+                    "regime": layout.regime, "bytes": layout.table_bytes,
+                    "gather_width": layout.max_probes * BUCKET}
+    log(f"table build: {layout.describe()}, "
+        f"{n / layout.buckets:.2f} entries per bucket, in {build_s:.1f} s")
 
     clen = np.array([contig_lengths[c] for c in index.contig_names],
                     np.int32)

@@ -23,7 +23,10 @@ While any ``torch.profiler`` records, every span also opens a
 on the device trace's timeline beside the kernels; with no profiler
 recording no range is opened. `add` records a span whose interval was
 measured elsewhere (the sum of a stage's pieces, or a worker path's first
-and last block); such a span opens no range.
+and last block); such a span opens no range. `count` records named
+counts (`Count`: a built table's layout at ``table/build``, a read
+stream's join counts at ``map/join``), in the order they were taken, so
+that they can be read after the objects that kept them are gone.
 
 A replayed CUDA graph records none of those ranges, so while a profile
 may be taken (`profiling`: NTLINK_TORCH_PROFILE, or a profile directory on
@@ -80,13 +83,20 @@ class Span:
     thread: str = ""
 
 
+@dataclass
+class Count:
+    name: str
+    values: Dict[str, int]
+
+
 class Tracer:
-    """Collects stage spans; no-op when disabled."""
+    """Collects stage spans and counts; no-op when disabled."""
 
     def __init__(self, enabled: bool = False,
                  torch_profile_dir: Optional[str] = None):
         self.enabled = enabled
         self.spans: List[Span] = []
+        self.counts: List[Count] = []
         self.torch_profile_dir = torch_profile_dir or os.environ.get(
             "NTLINK_TORCH_PROFILE"
         )
@@ -176,6 +186,16 @@ class Tracer:
         self.spans.append(Span(name, wall_s, cpu_s, rss, int(start_ns),
                                stack[-1] if stack else None,
                                threading.current_thread().name))
+
+    def count(self, name: str, **values: int) -> None:
+        """Record the counts `values` under `name`."""
+        if self.enabled:
+            self.counts.append(Count(name, dict(values)))
+
+    def counts_named(self, name: str) -> List[Dict[str, int]]:
+        """The values of every count recorded under `name`, oldest
+        first."""
+        return [c.values for c in self.counts if c.name == name]
 
     def ordered(self) -> List[Span]:
         """The spans by start, a span before those it holds."""
