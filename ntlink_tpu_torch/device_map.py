@@ -70,7 +70,9 @@ n_minimizers) and its `bucket_bytes` (slots x `max_probes` x 128 B of
 bucket rows gathered). They are counted only while the Tracer is on,
 once a device call, never once a read: each such stream's summary line
 gives its own, and they go to ``tracing.GLOBAL`` as a ``map/join`` count,
-as the table's `TableLayout` goes at ``table/build``.
+as the table's `TableLayout` goes at ``table/build``. A held stream's
+line also gives its consumer's ``render/verbose`` count (the anchors and
+bytes of its verbose lines), again only while the Tracer is on.
 """
 from __future__ import annotations
 
@@ -185,6 +187,22 @@ def batch_rows(pad: int, batch_bases: int) -> int:
     """Rows of a full device batch at padded length `pad`: the power of two
     nearest above batch_bases / pad (``DeviceMapper``'s batch height)."""
     return next_pow2(max(1, batch_bases // pad))
+
+
+def _render_since(counts0: Optional[int]) -> str:
+    """The ``render/verbose`` counts taken since the Tracer held `counts0`
+    counts (None: the Tracer off), as a clause of the summary line. A
+    consumer that holds the stream (`pipeline._map_reads_native`) takes
+    its count before the line is printed."""
+    if counts0 is None:
+        return ""
+    got = [c.values for c in tracing.GLOBAL.counts[counts0:]
+           if c.name == "render/verbose"]
+    if not got:
+        return ""
+    anchors = sum(v["anchors"] for v in got)
+    nbytes = sum(v["bytes"] for v in got)
+    return f"verbose rendering: {anchors} anchors, {nbytes} bytes; "
 
 
 class TorchMapper:
@@ -515,6 +533,7 @@ class TorchMapper:
         reads0 = self.device_reads + self.host_fallbacks
         blocks0 = self.read_blocks
         join0 = dict(self.join_stats) if tracing.GLOBAL.enabled else None
+        counts0 = len(tracing.GLOBAL.counts) if tracing.GLOBAL.enabled else None
         t0 = time.perf_counter()
         c0 = timer.cpu_now()
         try:
@@ -537,6 +556,7 @@ class TorchMapper:
                 else "prechained" if self.prechained else "host-chained"
             )
             join = self._join_since(join0)
+            render = _render_since(counts0)
             print(
                 f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
                 f"read(s) in {secs:.3f} s ({n / max(secs, 1e-9):.1f} "
@@ -547,7 +567,7 @@ class TorchMapper:
                 f"on the device, batches by (pad, has N) "
                 f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
                 f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
-                f"run-lane overflow); {join}"
+                f"run-lane overflow); {join}{render}"
                 f"{step_graph.summary(self.graph_counts(), graphs0)}",
                 file=sys.stderr,
             )

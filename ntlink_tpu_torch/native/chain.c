@@ -19,7 +19,9 @@
  *       -> (runs_bytes, run_offsets_bytes, verbose_bytes | None,
  *           paf_bytes | None)
  *     chain_batch handles the whole drained device batch in one call with
- *     the GIL released; runs_bytes is int32[n_runs][8] rows
+ *     the GIL released, rendering the verbose lines straight into the
+ *     bytes object it returns (allocated at the group's upper bound and
+ *     shrunk to fit); runs_bytes is int32[n_runs][8] rows
  *     (cid, hit_count, first_cpos, first_rpos, first_bits,
  *      last_cpos, last_rpos, last_bits), run_offsets_bytes is
  *     int32[n_reads+1] prefix offsets into those rows. mode bit 0 requests
@@ -42,7 +44,8 @@ typedef struct {
     Py_ssize_t n_contigs;
     PyObject *names;       /* list of str (owned) */
     const char **name_ptr; /* cached UTF-8 pointers into names */
-    int32_t *name_len;
+    int32_t *name_len;     /* bytes before the first NUL, as %s prints */
+    int32_t max_name_len;
     Py_buffer clen_view;
 } ChainerObject;
 
@@ -71,6 +74,7 @@ static PyObject *Chainer_new(PyTypeObject *type, PyObject *args, PyObject *kwds)
     memset(&self->clen_view, 0, sizeof(self->clen_view));
     self->name_ptr = NULL;
     self->name_len = NULL;
+    self->max_name_len = 0;
     if (PyObject_GetBuffer(clen_obj, &self->clen_view, PyBUF_SIMPLE) < 0) {
         Py_DECREF(self);
         return NULL;
@@ -97,7 +101,9 @@ static PyObject *Chainer_new(PyTypeObject *type, PyObject *args, PyObject *kwds)
             return NULL;
         }
         self->name_ptr[i] = s;
-        self->name_len[i] = (int32_t)blen;
+        self->name_len[i] = (int32_t)strnlen(s, (size_t)blen);
+        if (self->name_len[i] > self->max_name_len)
+            self->max_name_len = self->name_len[i];
     }
     return (PyObject *)self;
 }
@@ -361,7 +367,7 @@ static Py_ssize_t chain_core_prechained(const int32_t *cids, Py_ssize_t n,
     return n_final;
 }
 
-/* growable byte buffer for verbose rendering */
+/* growable byte buffer for PAF rendering */
 typedef struct {
     char *buf;
     size_t len, cap;
@@ -382,33 +388,105 @@ static int bb_reserve(ByteBuf *b, size_t extra)
     return 0;
 }
 
-/* Render one read's verbose lines into bb. Returns 0 / -1 (nomem). */
-static int render_verbose(const ChainerObject *self, ByteBuf *bb,
-                          const char *rname, Py_ssize_t rname_len,
-                          Py_ssize_t n_final, const Run *final_runs,
-                          const int32_t *final_idx, const int32_t *cpos,
-                          const int32_t *rpos, const int32_t *sbits)
+/* Verbose rendering without printf: names are copied by length and
+ * integers are written two decimal digits per step from DIGIT_PAIRS. The
+ * bytes are exactly those of "%s\t%s\t%d\t" per run and "%d:%c_%d:%c"
+ * per anchor. */
+static const char DIGIT_PAIRS[201] =
+    "00010203040506070809101112131415161718192021222324252627282930313233"
+    "34353637383940414243444546474849505152535455565758596061626364656667"
+    "6869707172737475767778798081828384858687888990919293949596979899";
+
+/* most bytes one run's header ("\t" x 3 and a count of <= 10 digits) and
+ * one anchor ("-2147483648:+_-2147483648:- ") take besides the names */
+#define VERBOSE_RUN_BYTES 13
+#define VERBOSE_ANCHOR_BYTES 28
+
+static inline char *put_u32(char *p, uint32_t v)
 {
-    size_t need = 0;
-    for (Py_ssize_t i = 0; i < n_final; i++)
-        need += 64 + rname_len + self->name_len[final_runs[i].cid] +
-                48 * (final_runs[i].end - final_runs[i].start);
-    if (bb_reserve(bb, need) < 0)
-        return -1;
-    char *p = bb->buf + bb->len;
+    int n = v < 10u           ? 1
+            : v < 100u        ? 2
+            : v < 1000u       ? 3
+            : v < 10000u      ? 4
+            : v < 100000u     ? 5
+            : v < 1000000u    ? 6
+            : v < 10000000u   ? 7
+            : v < 100000000u  ? 8
+            : v < 1000000000u ? 9
+                              : 10;
+    char *q = p + n;
+    while (v >= 100u) {
+        uint32_t r = v % 100u;
+        v /= 100u;
+        q -= 2;
+        memcpy(q, DIGIT_PAIRS + 2 * r, 2);
+    }
+    if (v >= 10u)
+        memcpy(q - 2, DIGIT_PAIRS + 2 * v, 2);
+    else
+        q[-1] = (char)('0' + v);
+    return p + n;
+}
+
+static inline char *put_i32(char *p, int32_t x)
+{
+    uint32_t v = (uint32_t)x;
+    if (x < 0) {
+        *p++ = '-';
+        v = 0u - v; /* INT32_MIN's magnitude fits in uint32 */
+    }
+    return put_u32(p, v);
+}
+
+/* Most bytes render_verbose writes for a read of n anchors on contigs
+ * cids: its final runs keep the anchors' order, so there are no more of
+ * them than runs of equal ids among the anchors. */
+static size_t verbose_bound(const ChainerObject *self, const int32_t *cids,
+                            Py_ssize_t n, Py_ssize_t rname_len)
+{
+    if (n == 0)
+        return 0;
+    size_t runs = 1;
+    for (Py_ssize_t j = 1; j < n; j++)
+        runs += cids[j] != cids[j - 1];
+    return runs * ((size_t)rname_len + (size_t)self->max_name_len +
+                   VERBOSE_RUN_BYTES) +
+           (size_t)VERBOSE_ANCHOR_BYTES * (size_t)n;
+}
+
+/* Render one read's verbose lines at p, which has room for verbose_bound's
+ * bytes; rname_len stops at the name's first NUL, as %s does. Returns the
+ * end of what was written. */
+static char *render_verbose(const ChainerObject *self, char *p,
+                            const char *rname, Py_ssize_t rname_len,
+                            Py_ssize_t n_final, const Run *final_runs,
+                            const int32_t *final_idx, const int32_t *cpos,
+                            const int32_t *rpos, const int32_t *sbits)
+{
     for (Py_ssize_t i = 0; i < n_final; i++) {
-        p += sprintf(p, "%s\t%s\t%d\t", rname, self->name_ptr[final_runs[i].cid],
-                     (int)(final_runs[i].end - final_runs[i].start));
+        int32_t cid = final_runs[i].cid;
+        memcpy(p, rname, (size_t)rname_len);
+        p += rname_len;
+        *p++ = '\t';
+        memcpy(p, self->name_ptr[cid], (size_t)self->name_len[cid]);
+        p += self->name_len[cid];
+        *p++ = '\t';
+        p = put_i32(p, final_runs[i].end - final_runs[i].start);
+        *p++ = '\t';
         for (int32_t ki = final_runs[i].start; ki < final_runs[i].end; ki++) {
             int32_t h = final_idx[ki];
-            p += sprintf(p, "%d:%c_%d:%c", (int)cpos[h],
-                         (sbits[h] & 1) ? '+' : '-', (int)rpos[h],
-                         (sbits[h] & 2) ? '+' : '-');
-            *p++ = (ki + 1 < final_runs[i].end) ? ' ' : '\n';
+            p = put_i32(p, cpos[h]);
+            p[0] = ':';
+            p[1] = (sbits[h] & 1) ? '+' : '-';
+            p[2] = '_';
+            p = put_i32(p + 3, rpos[h]);
+            p[0] = ':';
+            p[1] = (sbits[h] & 2) ? '+' : '-';
+            p[2] = (ki + 1 < final_runs[i].end) ? ' ' : '\n';
+            p += 3;
         }
     }
-    bb->len = p - bb->buf;
-    return 0;
+    return p;
 }
 
 static int pafkey_asc(const void *a, const void *b)
@@ -664,16 +742,16 @@ static PyObject *Chainer_chain(ChainerObject *self, PyObject *args)
                 Py_DECREF(run_list);
                 goto done;
             }
-            ByteBuf bb = {NULL, 0, 0};
-            if (render_verbose(self, &bb, rname, rlen, n_final, s.final_runs,
-                               s.final_idx, cpos, rpos, sbits) < 0) {
-                free(bb.buf);
-                Py_DECREF(run_list);
-                PyErr_NoMemory();
-                goto done;
+            rlen = (Py_ssize_t)strnlen(rname, (size_t)rlen);
+            verbose = PyBytes_FromStringAndSize(
+                NULL, (Py_ssize_t)verbose_bound(self, cids, n, rlen));
+            if (verbose) {
+                char *v = PyBytes_AS_STRING(verbose);
+                char *end = render_verbose(self, v, rname, rlen, n_final,
+                                           s.final_runs, s.final_idx, cpos,
+                                           rpos, sbits);
+                _PyBytes_Resize(&verbose, end - v);
             }
-            verbose = PyBytes_FromStringAndSize(bb.buf, bb.len);
-            free(bb.buf);
             if (!verbose) {
                 Py_DECREF(run_list);
                 goto done;
@@ -750,7 +828,8 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
     int32_t *rname_len = NULL;
     int32_t *run_offs = NULL;
     Scratch s;
-    ByteBuf vb = {NULL, 0, 0};
+    PyObject *verbose = NULL; /* filled without the GIL, then shrunk */
+    char *vbase = NULL, *vp = NULL;
     ByteBuf pb = {NULL, 0, 0};
     I32Buf rb = {NULL, 0, 0};
     memset(&s, 0, sizeof(s));
@@ -780,7 +859,7 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
             if (!p)
                 goto done;
             rname[i] = p;
-            rname_len[i] = (int32_t)blen;
+            rname_len[i] = (int32_t)strnlen(p, (size_t)blen);
         }
     }
     run_offs = PyMem_Malloc(sizeof(int32_t) * (n_reads + 1));
@@ -798,6 +877,17 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
     if (scratch_reserve(&s, max_n) < 0) {
         PyErr_NoMemory();
         goto done;
+    }
+    if (want_verbose) {
+        size_t bound = 0;
+        for (Py_ssize_t i = 0; i < n_reads; i++)
+            bound += verbose_bound(self, cids + offs[i],
+                                   (Py_ssize_t)(offs[i + 1] - offs[i]),
+                                   rname_len[i]);
+        verbose = PyBytes_FromStringAndSize(NULL, (Py_ssize_t)bound);
+        if (!verbose)
+            goto done;
+        vbase = vp = PyBytes_AS_STRING(verbose);
     }
 
     Py_BEGIN_ALLOW_THREADS
@@ -831,12 +921,11 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
             rb.len += 8;
         }
         run_offs[i + 1] = (int32_t)(rb.len / 8);
-        if (want_verbose && n_final > 0 &&
-            render_verbose(self, &vb, rname[i], rname_len[i], n_final,
-                           s.final_runs, s.final_idx, cpos + o, rpos + o,
-                           sbits + o) < 0)
-            failed = 1;
-        if (want_paf && n_final > 0 && !failed &&
+        if (want_verbose && n_final > 0)
+            vp = render_verbose(self, vp, rname[i], rname_len[i], n_final,
+                                s.final_runs, s.final_idx, cpos + o,
+                                rpos + o, sbits + o);
+        if (want_paf && n_final > 0 &&
             render_paf(self, &pb, rname[i], rname_len[i], rlens[i], k,
                        n_final, s.final_runs, s.final_idx, cpos + o, rpos + o,
                        sbits + o, &s) < 0)
@@ -853,9 +942,8 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
             PyBytes_FromStringAndSize((char *)rb.buf, rb.len * sizeof(int32_t));
         PyObject *offs_b = PyBytes_FromStringAndSize(
             (char *)run_offs, (n_reads + 1) * sizeof(int32_t));
-        PyObject *verbose;
         if (want_verbose)
-            verbose = PyBytes_FromStringAndSize(vb.buf, vb.len);
+            _PyBytes_Resize(&verbose, vp - vbase);
         else {
             verbose = Py_None;
             Py_INCREF(Py_None);
@@ -867,23 +955,16 @@ static PyObject *Chainer_chain_batch(ChainerObject *self, PyObject *args)
             paf = Py_None;
             Py_INCREF(Py_None);
         }
-        if (!runs_b || !offs_b || !verbose || !paf) {
-            Py_XDECREF(runs_b);
-            Py_XDECREF(offs_b);
-            Py_XDECREF(verbose);
-            Py_XDECREF(paf);
-            goto done;
-        }
-        result = PyTuple_Pack(4, runs_b, offs_b, verbose, paf);
-        Py_DECREF(runs_b);
-        Py_DECREF(offs_b);
-        Py_DECREF(verbose);
-        Py_DECREF(paf);
+        if (runs_b && offs_b && verbose && paf)
+            result = PyTuple_Pack(4, runs_b, offs_b, verbose, paf);
+        Py_XDECREF(runs_b);
+        Py_XDECREF(offs_b);
+        Py_XDECREF(paf);
     }
 
 done:
+    Py_XDECREF(verbose);
     scratch_free(&s);
-    free(vb.buf);
     free(pb.buf);
     free(rb.buf);
     PyMem_Free(run_offs);

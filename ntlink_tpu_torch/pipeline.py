@@ -277,7 +277,9 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
     Verbose/PAF rendering and the repeat filter all run batch-level (C /
     NumPy), so paf=True and repeats=True stay on this path. With
     NTLINK_TIMING=1 each group is keyed in the stream's timer as
-    group_gather, chain_render, verbose_write and tally.
+    group_gather, chain_render, verbose_write and tally. While the Tracer
+    is on, the anchors and bytes of each stream's verbose lines go to it as
+    one ``render/verbose`` count, taken before the stream's summary line.
     """
     names = mapper.contig_names
     n_reads = 0
@@ -285,6 +287,8 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
     g_lens: list = []
     g_raw: list = []
     mode = (1 if verbose_fh else 0) | (2 if paf_fh else 0)
+    rendered = ({"anchors": 0, "bytes": 0}
+                if tracer.enabled and verbose_fh else None)
 
     def flush_group(timer: PhaseTimer) -> None:
         if not g_names:
@@ -330,6 +334,11 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
                 cfg.k, cfg.z, 1 if cfg.sensitive else 0, float(cfg.x), mode,
                 1 if getattr(mapper, "prechained", False) else 0,
             )
+        if rendered is not None:
+            # every anchor of a run is rendered: the rows' hit counts
+            rendered["anchors"] += int(np.frombuffer(runs_b, np.int32)[1::8]
+                                       .sum())
+            rendered["bytes"] += len(vbytes)
         if (verbose_fh and vbytes) or (paf_fh and pbytes):
             with timer.span("verbose_write"):
                 if verbose_fh and vbytes:
@@ -367,6 +376,9 @@ def _map_reads_native(cfg, mapper, chainer, tally, contig_lengths, verbose_fh,
                 if len(g_names) >= CHAIN_GROUP:
                     flush_group(timer)
             flush_group(timer)
+            if rendered is not None:
+                tracer.count("render/verbose", **rendered)
+                rendered.update(anchors=0, bytes=0)
     return n_reads
 
 

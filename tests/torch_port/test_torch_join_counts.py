@@ -259,5 +259,8 @@ def test_tracer_takes_one_join_count_a_stream(skewed, monkeypatch):
         assert per_stream[0] == per_stream[1]
         assert sum(r["slots"] for r in records) == calls.slots()
         assert sum(r["queries"] for r in records) == calls.queries()
+        # the consumer's count of each verbose stream comes before the
+        # stream's own, which its summary line takes at the stream's end
         assert [c.name for c in tracing.GLOBAL.counts] == [
-            "table/build", "map/join", "map/join"]
+            "table/build", "render/verbose", "map/join", "render/verbose",
+            "map/join"]
