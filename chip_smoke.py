@@ -137,11 +137,11 @@ from ntlink_tpu_torch import (
 )
 from ntlink_tpu_torch import sketch as sketch_mod
 from ntlink_tpu_torch.liftover import liftover_mappings
-from ntlink_tpu_torch.device_map import (
-    TorchMapper, batch_rows, copy_back, pack_batch, pinned,
-)
+from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.index import ContigIndex
-from ntlink_tpu_torch.stream_pipeline import PhaseTimer, next_pow2
+from ntlink_tpu_torch.stream_pipeline import (
+    PhaseTimer, batch_rows, copy_back, next_pow2, pack_batch, pinned,
+)
 from ntlink_tpu_torch.native import build as native_build
 from ntlink_tpu_torch.parallel.sharded_index import (
     ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,

@@ -1,8 +1,11 @@
 """Batched read mapping on torch devices: sketch + index join in PyTorch.
 
-Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper``. Reads stream into (pad, has_n)-bucketed, 2-bit packed
-(B, pad/4) batches, N-containing reads with a 1-bit mask of their non-ACGT
-bases (``stream_pipeline.split_n_rows``); one `mapping_step.mapping_step`
+Counterpart of ``ntlink_tpu/device_map.py::DeviceMapper``. Reads stream
+into (pad, has_n)-bucketed, 2-bit packed (B, pad/4) batches, N-containing
+reads with a 1-bit mask of their non-ACGT bases
+(``stream_pipeline.BatchStream``, which the contig sketcher's stream
+shares; `_ReadBatches` is the reads' intake, step and decoding); one
+`mapping_step.mapping_step`
 per batch sketches them (the Hopper kernel on a CUDA device), joins the
 minimizers against the contig table and compacts the matched anchors. On
 a CUDA device each replica dispatches a batch as one CUDA graph replay of
@@ -38,10 +41,12 @@ holds its own `DeviceIndex` and contig lengths, a batch's rows split into
 contiguous blocks, each device runs `mapping_step` on its block on a
 stream of its own (``mesh.make_sharded_mapping_step``'s data axis), and the
 blocks' payloads are read back in row order, so every read's payload is
-the one-device payload. Each replica has its own graphs.
-`index_sharding="hash"` shards the table instead
-over a (data, idx) grid (`parallel.sharded_index`); it chains on the host,
-and with one device it runs replicated, as ``DeviceMapper`` does.
+the one-device payload. Each replica has its own graphs. Hash sharding
+shards the table instead over a (data, idx) grid
+(`parallel.sharded_index`); it chains on the host, and with one device it
+runs replicated, as ``DeviceMapper`` does. `TorchMapper.__init__` chooses
+the layout's steps once (`_ReplicaSet` or `_HashGrid`): their uploads and
+step calls, launches, join counting, text and payload layout.
 
 The stream accounts for itself as ``DeviceMapper``'s does. `wire_stats`
 counts, over every stream of the mapper, the bytes handed to the devices
@@ -92,21 +97,19 @@ from . import step_graph, tracing
 from .chain import CHAIN_MAX_CONTIGS, RUN_LANES
 from .index import ContigIndex
 from .mapping import AnchorHit
-from .mapping_step import BUCKET_BYTES, DeviceIndex, mapping_step, pack_codes
-from .native import chain_module, fastx_module, sketch_module
+from .mapping_step import BUCKET_BYTES, DeviceIndex, mapping_step
+from .native import chain_module, sketch_module
 from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
 from .parallel.sharded_index import (
     ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
 )
 from .seqio.fastx import CodeBlock, code_blocks
-from .stream_pipeline import (
-    DevicePipeline, PhaseTimer, next_pow2, split_n_rows,
-)
+from .stream_pipeline import BatchStream, PhaseTimer, next_pow2
 
 
-#: the producer thread's keys that `_stream` times inside itself, which
-#: `read_prep` leaves out
+#: the producer thread's keys that `_ReadBatches.run` times inside itself,
+#: which `read_prep` leaves out
 _STREAM_KEYS = ("reader_pull", "host_remap", "pack", "feed_enqueue_wait",
                 "flush_join")
 
@@ -183,12 +186,6 @@ class Replica:
         return torch.cuda.stream(self.stream)
 
 
-def batch_rows(pad: int, batch_bases: int) -> int:
-    """Rows of a full device batch at padded length `pad`: the power of two
-    nearest above batch_bases / pad (``DeviceMapper``'s batch height)."""
-    return next_pow2(max(1, batch_bases // pad))
-
-
 def _render_since(counts0: Optional[int]) -> str:
     """The ``render/verbose`` counts taken since the Tracer held `counts0`
     counts (None: the Tracer off), as a clause of the summary line. A
@@ -216,9 +213,6 @@ class TorchMapper:
     #: (`map_stream_raw`; ~150 ONT reads of 10-15 kb), a quarter of the
     #: default `batch_bases`
     BLOCK_BASES = 1 << 21
-    #: batches' worth of padded device reads between two flushes of every
-    #: bucket (`flush_all`)
-    FLUSH_BATCHES = 4
     #: in-flight batches between the producer, feeder and drainer threads
     #: (NTLINK_PIPE_DEPTH overrides it)
     DEPTH = 4
@@ -268,16 +262,13 @@ class TorchMapper:
                 self.prechained = True
         self.runs_only = bool(runs_only) and self.prechained
         self._replicas: List[Replica] = []
-        self._hash_steps: Dict[int, object] = {}
         if index_sharding == "hash":
             self.idx_shards = idx_shards or default_idx_shards(self.n_devices)
-            self.didx = ShardedDeviceIndex.from_contig_index(
-                index, self.idx_shards)
-            self._mesh2d = make_mesh_2d(self.idx_shards, self.devices)
-            #: whether the grids' steps replay graphs: decided when the
-            #: mapper is made, as a replica's are, though a grid is made at
-            #: its pad's first batch
-            self._hash_graphs = not tracing.profiling()
+            #: the layout's steps, chosen once (`_HashGrid`, `_ReplicaSet`)
+            self._steps = _HashGrid(self)
+            self.didx = self._steps.didx
+            self._mesh2d = self._steps.mesh
+            self._hash_steps = self._steps.steps
         else:
             self.idx_shards = 1
             with tracing.GLOBAL.stage("table/build"):
@@ -312,6 +303,7 @@ class TorchMapper:
             self.build_seconds = t1 - t0
             self.upload_seconds = t3 - t2
             tracing.GLOBAL.count("table/build", **vars(self.didx.layout))
+            self._steps = _ReplicaSet(self)
         self.host_fallbacks = 0
         #: reads whose anchors came from a device batch
         self.device_reads = 0
@@ -351,53 +343,29 @@ class TorchMapper:
         block while a flush joins and delivers, then the next flush's
         blocks in a burst, so a shallower queue stalls the reader in the
         one and the stream in the other."""
-        return -(-self.FLUSH_BATCHES * self.batch_bases // self.BLOCK_BASES)
+        return -(-BatchStream.FLUSH_BATCHES * self.batch_bases
+                 // self.BLOCK_BASES)
 
     def _slots_for(self, L: int) -> int:
         """Minimizer slot budget for padded length L (density ~2/(w+1))."""
         return next_pow2(max(128, int(2.5 * L / (self.w + 1)) + 64))
 
-    def _hash_step_for(self, L: int):
-        """The hash-sharded mapping step for padded length L, made once."""
-        if L not in self._hash_steps:
-            step = make_sharded_index_mapping_step(
-                self._mesh2d, self.didx, self.k, self.w, L,
-                self._slots_for(L), with_hashes=self.with_hashes,
-            )
-            if not self._hash_graphs:
-                step.graphs = [None] * len(step.graphs)
-            self._hash_steps[L] = step
-        return self._hash_steps[L]
-
     def layout(self) -> str:
         """The index layout that runs, for the summary line."""
-        if self.index_sharding == "hash":
-            return (
-                f"index hash-sharded over a {len(self._mesh2d)} x "
-                f"{self.idx_shards} (data, idx) grid of "
-                f"{[str(d) for d in self.devices]}"
-            )
-        if self.n_devices == 1:
-            return f"{self.device}, index replicated"
-        return (f"index replicated on {self.n_devices} devices "
-                f"{[str(d) for d in self.devices]}")
+        return self._steps.text
 
     def graph_counts(self):
         """(captures, replays, capture seconds, first batches run
         eagerly) of every replica's step graphs, or of every device's of
         the hash-sharded grids, so far; None where every step runs
         eagerly."""
-        return step_graph.counts(
-            [rep.graphs for rep in self._replicas]
-            + [g for step in self._hash_steps.values() for g in step.graphs])
+        return step_graph.counts(self._steps.graph_sets())
 
     def launches_by_device(self) -> List[int]:
         """Sketch kernel launches of each replica (replicated layout), or
         of the whole grid in one entry (hash-sharded: every cell launches
         once per batch)."""
-        if self.index_sharding == "hash":
-            return [self.kernel_launches]
-        return [rep.launches for rep in self._replicas]
+        return self._steps.launches()
 
     def _host_map_raw(self, codes: np.ndarray):
         """Host fallback producing the raw array payload (exact path):
@@ -472,20 +440,6 @@ class TorchMapper:
             hi = np.ascontiguousarray(hi[sel])
             lo = np.ascontiguousarray(lo[sel])
         return (n, rpos, cid, cpos, sbits, hi, lo)
-
-    def _pad_len(self, n: int) -> int:
-        p = self.MIN_PAD
-        while p < n and p < self.MAX_PAD:
-            p <<= 1
-        return p
-
-    def _pad_log2(self, lengths: np.ndarray) -> np.ndarray:
-        """log2 of `_pad_len` of each length: the next power of two, held
-        between MIN_PAD and MAX_PAD (``frexp`` of n - 1 is its bit length,
-        exact below 2**53)."""
-        bits = np.frexp(np.maximum(lengths, 1) - 1)[1]
-        return np.clip(bits, self.MIN_PAD.bit_length() - 1,
-                       self.MAX_PAD.bit_length() - 1).astype(np.int64)
 
     def map_stream(
         self, named_seqs: Iterable[Tuple[str, str]]
@@ -576,7 +530,7 @@ class TorchMapper:
         """The bucket join's counts of the stream that began at `join0`
         (None: not counted, the Tracer off), as a clause of the summary
         line, and to ``tracing.GLOBAL``."""
-        if join0 is None or self.index_sharding == "hash":
+        if join0 is None or not self._steps.counts_join:
             return ""
         layout = self.didx.layout
         d = {key: self.join_stats[key] - join0[key] for key in join0}
@@ -630,265 +584,188 @@ class TorchMapper:
             yield from self._timed_stream(blocks, timer)
 
     def _timed_stream(self, blocks, timer: PhaseTimer):
-        stream = self._stream(blocks, timer)
+        stream = _ReadBatches(self, timer).run(blocks)
         if timer.on:
             # read_prep: this generator's own time on this thread
             stream = timer.self_timed(stream, "read_prep", _STREAM_KEYS)
         return stream
 
-    def _stream(self, blocks, timer: PhaseTimer):
-        """`map_stream_raw`'s body, keyed in `timer`: producer thread
-        reader_pull (per block), host_remap, pack, feed_enqueue_wait,
-        flush_join; feeder h2d_put, dispatch, copy_back,
-        drain_enqueue_wait; drainer drain_flat_wait, drain_decode."""
-        timing = timer.on
-        wire = self.wire_stats
-        join = self.join_stats
-        count_join = tracing.GLOBAL.enabled
-        # the reads since the last flush_all, by their index there
-        names: List[str] = []
-        read_lens: List[int] = []
-        read_codes: List[np.ndarray] = []
-        results: Dict[int, object] = {}
-        # bucket code 2 * log2(pad) + has_n -> read idxs, in the order of
-        # each bucket's first read since the last flush_all
-        buckets: Dict[int, List[int]] = {}
-        next_yield = [0]
 
-        def full_height(code: int) -> int:
-            return batch_rows(1 << (code >> 1), self.batch_bases)
+class _ReplicaSet:
+    """The replicated layout's steps: every device holds the whole table
+    (`TorchMapper._replicas`); a batch's rows split into contiguous
+    blocks, one a device, each device's step on its own stream, and the
+    blocks' payloads come back in row order. The bucket join is counted
+    here (`TorchMapper.join_stats`)."""
 
-        def flush_bucket(code: int, idxs: List[int]) -> None:
-            key = (1 << (code >> 1), bool(code & 1))
-            pad, has_n = key
-            # partial flushes step the height down to the next power of two
-            B = min(full_height(code), next_pow2(len(idxs)))
-            row_codes = [read_codes[i] for i in idxs]
-            lengths = np.zeros(B, dtype=np.int32)
-            lengths[: len(idxs)] = [len(c) for c in row_codes]
-            ts = timer.now()
-            packed, nmask = pack_batch(row_codes, B, pad, has_n)
-            ts = timer.mark("pack", ts)
-            pipe.submit((packed, nmask, lengths, key, dict(enumerate(idxs)),
-                         row_codes))
-            timer.mark("feed_enqueue_wait", ts)
+    counts_join = True
 
-        def upload(put, device, packed, lengths, nmask, rows=None):
-            # feeder thread: one block's host copy and upload enqueue; the
-            # devices get `rows` of its rows in all (default: each once)
-            tw = time.perf_counter()
-            out = put(device, packed, lengths, nmask)
-            dt = time.perf_counter() - tw
-            nbytes = (packed.nbytes + lengths.nbytes
-                      + (0 if nmask is None else nmask.nbytes))
-            wire["h2d"] += (nbytes if rows is None
-                            else nbytes * rows // len(lengths))
-            wire["h2d_s"] += dt
-            timer.add("h2d_put", dt)
-            return out
+    def __init__(self, m: TorchMapper):
+        self.mapper, self.replicas = m, m._replicas
+        self.text = (f"{m.device}, index replicated" if m.n_devices == 1
+                     else f"index replicated on {m.n_devices} devices "
+                     f"{[str(d) for d in m.devices]}")
 
-        def download(out: torch.Tensor):
-            ts = timer.now()
-            host = copy_back(out)
-            timer.mark("copy_back", ts)
-            return host
+    def graph_sets(self) -> list:
+        return [rep.graphs for rep in self.replicas]
 
-        def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
-            # feeder thread: every device call of the batch. Each block of
-            # rows goes to its device in turn; the calls return before the
-            # device is done, so the devices work at once
-            pad = key[0]
-            slots = self._slots_for(pad)
-            self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
-            B = len(lengths)
-            blocks = []
-            if self.index_sharding == "hash":
-                step = self._hash_step_for(pad)
-                origin = step.cells[0][0]
-                # the step uploads each device's rows once (into its
-                # graph's static inputs, or eagerly)
-                p, ln, nm = upload(pinned, origin.device, packed, lengths,
-                                   nmask, rows=step.grid.upload_rows(B))
+    def launches(self) -> List[int]:
+        return [rep.launches for rep in self.replicas]
+
+    def run(self, stream: "_ReadBatches", pad: int, slots: int, packed,
+            nmask, lengths, n_rows: int) -> list:
+        # each block of rows goes to its device in turn; the calls return
+        # before the device is done, so the devices work at once
+        m, timer, join = self.mapper, stream.timer, self.mapper.join_stats
+        B = len(lengths)
+        n = len(self.replicas)
+        bounds = [B * d // n for d in range(n + 1)]
+        blocks = []
+        for rep, lo, hi in zip(self.replicas, bounds, bounds[1:]):
+            if lo >= min(hi, n_rows):
+                continue  # no row, or padding rows alone
+            with rep.work():
+                launches = sketch_cuda.launches
+                # a graph set takes the host tensors and copies them into
+                # its static inputs itself
+                p, ln, nm = stream.upload(
+                    rep.device, packed[lo:hi], lengths[lo:hi],
+                    None if nmask is None else nmask[lo:hi],
+                    copy=rep.graphs is None)
                 ts = timer.now()
-                flat = step.flat(p, ln, nm)
+                if rep.graphs is None:
+                    out = mapping_step(
+                        p, ln, rep.didx, m.k, m.w, pad, slots, nmask=nm,
+                        clen=rep.clen, z=m._chain_z, runs=m.runs_only,
+                        with_hashes=m.with_hashes,
+                    )
+                else:
+                    out = rep.graphs.run(
+                        mapping_step, dict(packed=p, lengths=ln, nmask=nm),
+                        dict(index=rep.didx, k=m.k, w=m.w, L=pad,
+                             slots=slots, clen=rep.clen, z=m._chain_z,
+                             runs=m.runs_only, with_hashes=m.with_hashes))
                 timer.mark("dispatch", ts)
-                with origin.work():
-                    blocks.append((*download(flat), 0, B))
-            else:
-                n = self.n_devices
-                bounds = [B * d // n for d in range(n + 1)]
-                for rep, lo, hi in zip(self._replicas, bounds, bounds[1:]):
-                    if lo >= min(hi, len(rows)):
-                        continue  # no row, or padding rows alone
-                    with rep.work():
-                        launches = sketch_cuda.launches
-                        # a graph set takes the host tensors and copies
-                        # them into its static inputs itself
-                        p, ln, nm = upload(
-                            to_device if rep.graphs is None else pinned,
-                            rep.device, packed[lo:hi], lengths[lo:hi],
-                            None if nmask is None else nmask[lo:hi])
-                        ts = timer.now()
-                        if rep.graphs is None:
-                            out = mapping_step(
-                                p, ln, rep.didx, self.k, self.w, pad, slots,
-                                nmask=nm, clen=rep.clen, z=self._chain_z,
-                                runs=self.runs_only,
-                                with_hashes=self.with_hashes,
-                            )
-                        else:
-                            out = rep.graphs.run(
-                                mapping_step,
-                                dict(packed=p, lengths=ln, nmask=nm),
-                                dict(index=rep.didx, k=self.k, w=self.w,
-                                     L=pad, slots=slots, clen=rep.clen,
-                                     z=self._chain_z, runs=self.runs_only,
-                                     with_hashes=self.with_hashes))
-                        timer.mark("dispatch", ts)
-                        rep.launches += sketch_cuda.launches - launches
-                        if count_join:
-                            join["slots"] += (hi - lo) * slots
-                            join["bucket_bytes"] += ((hi - lo) * slots
-                                                     * rep.didx.max_probes
-                                                     * BUCKET_BYTES)
-                        blocks.append((*download(out), lo, hi))
-            ts = timer.now()
-            pipe.submit_drain((blocks, slots, rows, row_codes))
-            timer.mark("drain_enqueue_wait", ts)
+                rep.launches += sketch_cuda.launches - launches
+                if stream.count_join:
+                    join["slots"] += (hi - lo) * slots
+                    join["bucket_bytes"] += ((hi - lo) * slots
+                                             * rep.didx.max_probes
+                                             * BUCKET_BYTES)
+                blocks.append((*stream.download(out), lo, hi))
+        return blocks
 
-        def drain(blocks, slots, rows, row_codes) -> None:
-            # the blocks in row order: each read's result lands under its
-            # own index, so overflow rows and reads of other blocks keep
-            # their place in the stream
-            for out, event, lo, hi in blocks:
-                tw = time.perf_counter()
-                if event is not None:
-                    event.synchronize()
-                flat = out.numpy()
-                dt = time.perf_counter() - tw
-                wire["d2h"] += flat.nbytes
-                wire["d2h_s"] += dt
-                timer.add("drain_flat_wait", dt)
-                ts = timer.now()
-                B = hi - lo
-                if flat.ndim == 2:
-                    # hash-sharded step: meta in row 0, then the planes,
-                    # with (cid, cpos) packed into one gpos plane when the
-                    # index packs positions
-                    count, n_mins = flat[0, :B], flat[0, B : 2 * B]
-                    planes = list(flat[1:])
-                    if self.didx.t_off is not None:
-                        total = int(count.sum())
-                        cid, cpos = self.didx.decode_gpos(planes[1][:total])
-                        planes[1:2] = [cid, cpos]
-                else:
-                    count, n_mins = flat[:B], flat[B : 2 * B]
-                    if count_join and not self.runs_only:
-                        join["queries"] += int(
-                            np.minimum(n_mins, slots).sum())
-                    lanes = B * (RUN_LANES if self.runs_only else slots)
-                    planes = flat[2 * B :].reshape(-1, lanes)
-                drain_block(count, n_mins, planes, lo, min(hi, len(rows)),
-                            slots, rows, row_codes)
-                timer.mark("drain_decode", ts)
+    def payload(self, stream: "_ReadBatches", flat: np.ndarray, B: int,
+                slots: int):
+        """(count, n_mins, planes) of a block of B rows."""
+        m = self.mapper
+        count, n_mins = flat[:B], flat[B : 2 * B]
+        if stream.count_join and not m.runs_only:
+            m.join_stats["queries"] += int(np.minimum(n_mins, slots).sum())
+        lanes = B * (RUN_LANES if m.runs_only else slots)
+        return count, n_mins, flat[2 * B :].reshape(-1, lanes)
 
-        def drain_block(count, n_mins, planes, lo, hi, slots, rows,
-                        row_codes) -> None:
-            """Batch rows lo..hi-1 (rows 0.. of this block's payload)."""
-            if self.runs_only:
-                # run-lane overflow reports RUN_LANES + 1 in n_mins
-                slots = RUN_LANES
-                total = int(count.sum())
-                cid, cnt, f_cpos, l_cpos, f_rw, l_rw = planes[:, :total]
-                runs = np.stack([
-                    cid, cnt, f_cpos, f_rw & 0x1FFFFFFF, (f_rw >> 29) & 3,
-                    l_cpos, l_rw & 0x1FFFFFFF, (l_rw >> 29) & 3,
-                ], axis=1)
-            offs = np.zeros(len(count) + 1, np.int64)
-            np.cumsum(count, out=offs[1:])
-            for row in range(lo, hi):
-                i = rows[row]
-                r = row - lo
-                n = int(count[r])
-                if n_mins[r] > slots:
-                    results[i] = _Remap(row_codes[row])
-                    continue
-                if n == 0:
-                    results[i] = None
-                    continue
-                o = int(offs[r])
-                if self.runs_only:
-                    results[i] = (n, runs[o : o + n])
-                    continue
-                rw = planes[0][o : o + n]
-                if self.with_hashes:
-                    hi_, lo_ = planes[3][o : o + n], planes[4][o : o + n]
-                else:
-                    hi_ = lo_ = np.zeros(n, np.int32)
-                results[i] = (
-                    n, rw & 0x1FFFFFFF, planes[1][o : o + n],
-                    planes[2][o : o + n], (rw >> 29) & 3, hi_, lo_,
-                )
 
-        depth = int(os.environ.get("NTLINK_PIPE_DEPTH", self.DEPTH))
-        pipe = DevicePipeline(dispatch, drain, depth=depth,
-                              name="ntlink-torch-map")
+class _HashGrid:
+    """The hash-sharded layout's steps: the table sharded over a (data,
+    idx) grid of the devices (`parallel.sharded_index`), one step a pad,
+    made at its first batch, whose payload comes back whole from the
+    grid's first device. It chains on the host and counts no join."""
 
-        def deliver(i: int):
-            raw = results.pop(i)
-            if isinstance(raw, _Remap):
-                ts = timer.now() if timing else 0.0
-                raw = self._host_map_raw(raw.codes)
-                if timing:
-                    timer.mark("host_remap", ts)
-            else:
-                self.device_reads += 1
-            return names[i], read_lens[i], raw
+    counts_join = False
 
-        def ready_results():
-            # in input order, as soon as a read's batch has drained (the
-            # drainer only adds keys; this thread pops)
-            i = next_yield[0]
-            while i < len(names) and i in results:
-                yield deliver(i)
-                i += 1
-            next_yield[0] = i
+    def __init__(self, m: TorchMapper):
+        self.mapper = m
+        self.didx = ShardedDeviceIndex.from_contig_index(m.index,
+                                                         m.idx_shards)
+        self.mesh = make_mesh_2d(m.idx_shards, m.devices)
+        self.text = (f"index hash-sharded over a {len(self.mesh)} x "
+                     f"{m.idx_shards} (data, idx) grid of "
+                     f"{[str(d) for d in m.devices]}")
+        #: padded length -> its step
+        self.steps: Dict[int, object] = {}
+        #: whether the steps replay graphs: decided when the mapper is
+        #: made, as a replica's are, though a step is made at its pad's
+        #: first batch
+        self.graphs = not tracing.profiling()
 
-        def flush_all():
-            for code, idxs in list(buckets.items()):
-                if idxs:
-                    flush_bucket(code, idxs)
-            buckets.clear()
-            ts = timer.now()
-            pipe.join_all()
-            timer.mark("flush_join", ts)
-            for i in range(next_yield[0], len(names)):
-                yield deliver(i)
-            names.clear()
-            read_lens.clear()
-            read_codes.clear()
-            results.clear()
-            next_yield[0] = 0
+    def graph_sets(self) -> list:
+        return [g for step in self.steps.values() for g in step.graphs]
 
-        # A read the device takes joins its (pad, has N) bucket, which is
-        # flushed as a batch once it holds a full batch's rows; every
-        # FLUSH_BATCHES x batch_bases of padded device reads (`budget`)
-        # flush_all sends
-        # every bucket and delivers every read so far. A block's reads are
-        # taken in segments that end at the first read where either
-        # happens, so each flush falls on the read it would fall on one
-        # read at a time, whatever the blocks' bounds.
-        if timing:
+    def launches(self) -> List[int]:
+        # every cell launches once per batch
+        return [self.mapper.kernel_launches]
+
+    def run(self, stream: "_ReadBatches", pad: int, slots: int, packed,
+            nmask, lengths, n_rows: int) -> list:
+        step = self.steps.get(pad)
+        if step is None:  # the pad's first batch
+            m = self.mapper
+            step = self.steps[pad] = make_sharded_index_mapping_step(
+                self.mesh, self.didx, m.k, m.w, pad, slots,
+                with_hashes=m.with_hashes,
+            )
+            if not self.graphs:
+                step.graphs = [None] * len(step.graphs)
+        origin = step.cells[0][0]
+        B = len(lengths)
+        # the step uploads each device's rows once (into its graph's
+        # static inputs, or eagerly)
+        p, ln, nm = stream.upload(origin.device, packed, lengths, nmask,
+                                  copy=False, rows=step.grid.upload_rows(B))
+        ts = stream.timer.now()
+        flat = step.flat(p, ln, nm)
+        stream.timer.mark("dispatch", ts)
+        with origin.work():
+            return [(*stream.download(flat), 0, B)]
+
+    def payload(self, stream: "_ReadBatches", flat: np.ndarray, B: int,
+                slots: int):
+        """(count, n_mins, planes): meta in row 0, then the planes, with
+        (cid, cpos) packed into one gpos plane when the index packs
+        positions."""
+        count, n_mins = flat[0, :B], flat[0, B : 2 * B]
+        planes = list(flat[1:])
+        if self.didx.t_off is not None:
+            cid, cpos = self.didx.decode_gpos(planes[1][: int(count.sum())])
+            planes[1:2] = [cid, cpos]
+        return count, n_mins, planes
+
+
+class _ReadBatches(BatchStream):
+    """One read stream of a `TorchMapper` (`map_stream_raw`'s body), keyed
+    in `timer`: on the producer thread reader_pull (per block),
+    host_remap, pack, feed_enqueue_wait, flush_join; on the feeder
+    h2d_put, dispatch, copy_back, drain_enqueue_wait; on the drainer
+    drain_flat_wait, drain_decode. An item is a read; a row's tag is its
+    read's index."""
+
+    def __init__(self, mapper: TorchMapper, timer: PhaseTimer):
+        depth = int(os.environ.get("NTLINK_PIPE_DEPTH", mapper.DEPTH))
+        super().__init__(mapper, depth, "ntlink-torch-map", timer,
+                         mapper.wire_stats)
+        self.mapper = mapper
+        self.count_join = tracing.GLOBAL.enabled
+
+    def run(self, blocks):
+        """Yield (name, length, raw) of every read of `blocks`, in order.
+
+        A read the device takes joins its bucket; one it does not is
+        mapped on the host when its turn comes. A block's reads are taken
+        in segments that end at the first read where a bucket fills or
+        the budget runs out, so each flush falls on the read it would fall
+        on one read at a time, whatever the blocks' bounds."""
+        m, timer = self.mapper, self.timer
+        names, lengths, results = self.names, self.lengths, self.results
+        if timer.on:
             blocks = timer.timed(blocks, "reader_pull")
-        limit = self.FLUSH_BATCHES * self.batch_bases
         try:
-            budget = 0
             for block in blocks:
-                self.read_blocks += 1
+                m.read_blocks += 1
                 n = len(block)
                 lens = np.diff(block.offsets)
-                device = (lens >= self.k) & (lens <= self.MAX_PAD)
-                log_pad = self._pad_log2(lens)
+                device = (lens >= m.k) & (lens <= self.max_pad)
+                log_pad = self.pad_log2(lens)
                 bucket_of = np.where(device, 2 * log_pad + block.has_n, -1)
                 pads = np.where(device, np.left_shift(1, log_pad), 0)
                 block_names, block_lens = block.names, lens.tolist()
@@ -899,7 +776,7 @@ class TorchMapper:
                     filled = np.cumsum(pads[s:])
                     # the last read of the segment: the budget's crossing,
                     # a bucket's filling, or the block's end
-                    over = np.flatnonzero(filled >= limit - budget)
+                    over = np.flatnonzero(filled >= self.limit - self.budget)
                     e = int(over[0]) if len(over) else n - s - 1
                     found, first = np.unique(seg, return_index=True)
                     order = np.argsort(first)
@@ -908,105 +785,91 @@ class TorchMapper:
                                         first[order].tolist()):
                         pos = np.flatnonzero(seg == code)
                         if code >= 0:
-                            need = full_height(code) - len(
-                                buckets.get(code, ()))
+                            need = self.room(code)
                             if len(pos) >= need:
                                 e = min(e, int(pos[need - 1]))
                         per_code.append((code, at, pos))
                     base = len(names)
                     names.extend(block_names[s : s + e + 1])
-                    read_lens.extend(block_lens[s : s + e + 1])
-                    read_codes.extend(block_rows[s : s + e + 1])
+                    lengths.extend(block_lens[s : s + e + 1])
+                    seg_rows = block_rows[s : s + e + 1]
+                    flushed = False
                     for code, at, pos in per_code:
                         if at > e:
                             break
-                        taken = (pos[: np.searchsorted(pos, e, "right")]
-                                 + base).tolist()
+                        taken = pos[: np.searchsorted(pos, e, "right")]
+                        rows = list(map(seg_rows.__getitem__,
+                                        taken.tolist()))
+                        taken = (taken + base).tolist()
                         if code < 0:
-                            for i in taken:
-                                results[i] = _Remap(read_codes[i])
+                            for i, codes in zip(taken, rows):
+                                results[i] = _Remap(codes)
                         else:
-                            buckets.setdefault(code, []).extend(taken)
-                    budget += int(filled[e])
-                    last = int(seg[e])
+                            flushed = self.add(code, taken, rows) or flushed
+                    self.budget += int(filled[e])
                     s += e + 1
-                    if last >= 0 and len(buckets[last]) >= full_height(last):
-                        flush_bucket(last, buckets[last])
-                        buckets[last] = []
-                        yield from ready_results()
-                    if budget >= limit:
-                        yield from flush_all()
-                        budget = 0
-                yield from ready_results()
-            yield from flush_all()
+                    if flushed:
+                        yield from self.ready()
+                    if self.budget >= self.limit:
+                        yield from self.flush_all()
+                yield from self.ready()
+            yield from self.flush_all()
         finally:
-            pipe.close()
+            self.pipe.close()
 
+    def take(self, raw):
+        if isinstance(raw, _Remap):
+            ts = self.timer.now()
+            raw = self.mapper._host_map_raw(raw.codes)
+            self.timer.mark("host_remap", ts)
+        else:
+            self.mapper.device_reads += 1
+        return raw
 
-def to_device(device: torch.device, packed: np.ndarray,
-              lengths: np.ndarray, nmask):
-    """(packed uint8, lengths int32, nmask uint8 or None) on `device`: one
-    host copy each, straight into pinned memory on a CUDA device, and an
-    asynchronous upload on the current stream."""
-    host = pinned(device, packed, lengths, nmask)
-    if device.type != "cuda":
-        return host
-    return tuple(None if t is None else t.to(device, non_blocking=True)
-                 for t in host)
+    def step(self, key, packed, nmask, lengths, n_rows: int):
+        m = self.mapper
+        slots = m._slots_for(key[0])
+        m.batches_by_pad[key] = m.batches_by_pad.get(key, 0) + 1
+        return slots, m._steps.run(self, key[0], slots, packed, nmask,
+                                   lengths, n_rows)
 
-
-_TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32}
-
-
-def pinned(device: torch.device, *arrays):
-    """Host tensors of `arrays` (None stays None), in pinned memory when
-    `device` is a CUDA device, so that several devices can each start an
-    asynchronous upload of their share."""
-    on_cuda = device.type == "cuda"
-    out = []
-    for a in arrays:
-        if a is None:
-            out.append(None)
-            continue
-        t = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype.type],
-                        pin_memory=on_cuda)
-        t.numpy()[...] = a
-        out.append(t)
-    return tuple(out)
-
-
-def copy_back(out: torch.Tensor):
-    """Start the copy of a step's payload to the host: (host tensor, CUDA
-    event marking the copy's end, or None on the CPU). The drainer waits
-    on the event before it reads the host tensor. A graph's payload is its
-    static output, which the next replay overwrites, so on the CPU too the
-    payload is copied."""
-    if out.device.type != "cuda":
-        return out.clone(), None
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return host, event
-
-
-def pack_batch(row_codes: List[np.ndarray], B: int, pad: int, has_n: bool):
-    """Host side of a device batch: (packed (B, pad/4) uint8 2-bit codes,
-    nmask (B, pad/8) bit-packed non-ACGT mask or None). Rows of a has_n
-    batch are cleaned to A for packing (``split_n_rows``)."""
-    nmask = None
-    if has_n:
-        row_codes, nmask = split_n_rows(row_codes, B, pad)
-    native = fastx_module()
-    if native is not None:
-        buf = native.pack_batch(row_codes, pad)
-        packed = np.frombuffer(buf, np.uint8).reshape(-1, pad // 4)
-        if packed.shape[0] < B:
-            packed = np.vstack([
-                packed, np.zeros((B - packed.shape[0], pad // 4), np.uint8),
-            ])
-        return packed, nmask
-    codes = np.zeros((B, pad), dtype=np.uint8)
-    for row, c in enumerate(row_codes):
-        codes[row, : len(c)] = c
-    return pack_codes(codes), nmask
+    def decode(self, flat, slots, lo, hi, tags, rows) -> None:
+        """Batch rows lo..hi-1 (rows 0.. of this block's payload)."""
+        m = self.mapper
+        count, n_mins, planes = m._steps.payload(self, flat, hi - lo, slots)
+        hi = min(hi, len(tags))
+        results = self.results
+        if m.runs_only:
+            # run-lane overflow reports RUN_LANES + 1 in n_mins
+            slots = RUN_LANES
+            total = int(count.sum())
+            cid, cnt, f_cpos, l_cpos, f_rw, l_rw = planes[:, :total]
+            runs = np.stack([
+                cid, cnt, f_cpos, f_rw & 0x1FFFFFFF, (f_rw >> 29) & 3,
+                l_cpos, l_rw & 0x1FFFFFFF, (l_rw >> 29) & 3,
+            ], axis=1)
+        offs = np.zeros(len(count) + 1, np.int64)
+        np.cumsum(count, out=offs[1:])
+        for row in range(lo, hi):
+            i = tags[row]
+            r = row - lo
+            n = int(count[r])
+            if n_mins[r] > slots:
+                results[i] = _Remap(rows[row])
+                continue
+            if n == 0:
+                results[i] = None
+                continue
+            o = int(offs[r])
+            if m.runs_only:
+                results[i] = (n, runs[o : o + n])
+                continue
+            rw = planes[0][o : o + n]
+            if m.with_hashes:
+                hi_, lo_ = planes[3][o : o + n], planes[4][o : o + n]
+            else:
+                hi_ = lo_ = np.zeros(n, np.int32)
+            results[i] = (
+                n, rw & 0x1FFFFFFF, planes[1][o : o + n],
+                planes[2][o : o + n], (rw >> 29) & 3, hi_, lo_,
+            )

@@ -24,12 +24,13 @@ import torch
 
 from . import device as device_mod
 from .chain import RUN_LANES
-from .device_map import Replica, copy_back
+from .device_map import Replica
 from .mapping_step import DeviceIndex, mapping_step, pack_codes
 from .ops import nthash_np
 from .parallel.sharded_index import (
     ShardedDeviceIndex, make_mesh_2d, make_sharded_index_mapping_step,
 )
+from .stream_pipeline import copy_back
 
 
 def _synthetic(B: int, L: int, k: int, w: int):

@@ -33,22 +33,19 @@ import sys
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterable, Iterator, List, Tuple
+from typing import Dict, Iterable, Iterator, Tuple
 
 import numpy as np
 
 from . import device as device_mod
 from . import step_graph
-from .device_map import (
-    TorchMapper, batch_rows, copy_back, pack_batch, pinned, to_device,
-)
 from .hybrid_map import HybridStream
 from .mapping_step import sketch_step
 from .native import fastx_module, sketch_module
 from .ops import nthash_np, sketch_cuda
 from .ops.nthash_np import Minimizers
 from .seqio import stream_fastx
-from .stream_pipeline import DevicePipeline, next_pow2
+from .stream_pipeline import BatchStream
 from .tracing import GLOBAL as tracer
 
 
@@ -169,11 +166,6 @@ class _HostSketchPath:
 
 
 
-def _empty() -> Minimizers:
-    return Minimizers(np.zeros(0, np.uint64), np.zeros(0, np.int64),
-                      np.zeros(0, bool))
-
-
 class _Resketch:
     """A device row that overflowed its slot budget: the consumer thread
     sketches its codes on the exact host path when the row's turn comes
@@ -192,8 +184,6 @@ class TorchSketcher:
     MIN_PAD = 1 << 10
     MAX_PAD = 1 << 21
     MAX_SLOTS = 1 << 17
-
-    _pad_len = TorchMapper._pad_len
 
     def __init__(self, device=None, batch_bases: int = 16_000_000):
         self.device = device_mod.resolve(device)
@@ -235,191 +225,18 @@ class TorchSketcher:
         launches0 = sketch_cuda.launches
         graphs0 = step_graph.counts([self.graphs])
         fallbacks0 = self.host_fallbacks
-        n_seqs = 0
         t0 = time.perf_counter()
-        pending: List[Tuple[str, int]] = []   # (name, length)
-        #: per-chunk outputs, keyed (seq_idx, chunk_idx)
-        results: Dict[Tuple[int, int], Minimizers] = {}
-        encoded: Dict[Tuple[int, int], np.ndarray] = {}
-        #: (pad, has_n) -> [(seq_idx, chunk_idx, base_offset), ...]
-        buckets: Dict[tuple, List[tuple]] = {}
-        n_chunks: Dict[int, int] = {}  # seq_idx -> chunk count (1 = whole)
-        next_yield = [0]
-
-        def flush_bucket(key: tuple, idxs: List[tuple]) -> None:
-            pad, has_n = key
-            # partial flushes step the height down to the next power of two
-            B = min(batch_rows(pad, self.batch_bases), next_pow2(len(idxs)))
-            row_codes = [encoded.pop((i, ci)) for i, ci, _ in idxs]
-            lengths = np.zeros(B, dtype=np.int32)
-            lengths[: len(idxs)] = [len(c) for c in row_codes]
-            packed, nmask = pack_batch(row_codes, B, pad, has_n)
-            pipe.submit((packed, nmask, lengths, key, dict(enumerate(idxs)),
-                         row_codes))
-
-        def dispatch(packed, nmask, lengths, key, rows, row_codes) -> None:
-            pad = key[0]
-            slots = self._slots_for(pad, w)
-            if self.graphs is None:
-                p, ln, nm = to_device(self.device, packed, lengths, nmask)
-                out = sketch_step(p, ln, k, w, pad, slots, nmask=nm)
-            else:
-                # the graph set copies the host tensors into its inputs
-                p, ln, nm = pinned(self.device, packed, lengths, nmask)
-                out = self.graphs.run(
-                    sketch_step, dict(packed=p, lengths=ln, nmask=nm),
-                    dict(k=k, w=w, L=pad, max_mins=slots))
-            # counted once the step is issued: a batch whose step raised
-            # launched no kernel
-            self.batches_by_pad[key] = self.batches_by_pad.get(key, 0) + 1
-            pipe.submit_drain((*copy_back(out), len(lengths), slots, rows,
-                               row_codes))
-
-        def drain(out, event, B, slots, rows, row_codes) -> None:
-            if event is not None:
-                event.synchronize()
-            flat = out.numpy()
-            count, n_mins = flat[:B], flat[B : 2 * B]
-            planes = flat[2 * B :].reshape(3, B * slots)
-            offs = np.zeros(B + 1, np.int64)
-            np.cumsum(count, out=offs[1:])
-            for row, (i, ci, base_off) in rows.items():
-                n = int(count[row])
-                if n_mins[row] > slots:
-                    results[(i, ci)] = _Resketch(row_codes[row], base_off)
-                    continue
-                self.device_rows += 1
-                if n == 0:
-                    results[(i, ci)] = _empty()
-                    continue
-                o = int(offs[row])
-                ps = planes[0, o : o + n]
-                hashes = (
-                    planes[1, o : o + n].view(np.uint32).astype(np.uint64)
-                    << np.uint64(32)
-                ) | planes[2, o : o + n].view(np.uint32).astype(np.uint64)
-                results[(i, ci)] = Minimizers(
-                    hashes, (ps & 0x3FFFFFFF).astype(np.int64) + base_off,
-                    (ps >> 30).astype(bool),
-                )
-
-        pipe = DevicePipeline(dispatch, drain, name="ntlink-torch-sketch")
-
-        def take(i: int, ci: int) -> Minimizers:
-            m = results.pop((i, ci))
-            if isinstance(m, _Resketch):
-                h = self._host_sketch(m.codes, k, w)
-                m = Minimizers(h.hashes, h.positions + m.base_off, h.forward)
-            return m
-
-        def merged(i: int) -> Minimizers:
-            nc = n_chunks.pop(i)
-            if nc == 1:
-                return take(i, 0)
-            # the whole-sequence sketch emits at window j iff winner(j) !=
-            # winner(j-1); a chunk's first window always emits, so drop it
-            # iff it equals the previous chunk's last-window winner, which
-            # is that chunk's last emitted minimizer before its own trim
-            hs, ps, fs = [], [], []
-            prev_last = -1
-            for ci in range(nc):
-                m = take(i, ci)
-                h, po, f = m.hashes, m.positions, m.forward
-                if len(po) and len(ps) and int(po[0]) == prev_last:
-                    h, po, f = h[1:], po[1:], f[1:]
-                if len(m.positions):
-                    prev_last = int(m.positions[-1])
-                hs.append(h)
-                ps.append(po)
-                fs.append(f)
-            return Minimizers(
-                np.concatenate(hs), np.concatenate(ps), np.concatenate(fs)
-            )
-
-        def have_all(i: int) -> bool:
-            return all((i, ci) in results for ci in range(n_chunks[i]))
-
-        def deliver(i: int):
-            name, length = pending[i]
-            pending[i] = None
-            return name, length, merged(i)
-
-        def ready_results():
-            # in input order, as soon as every chunk of a sequence has
-            # drained (the drainer only adds keys; this thread pops)
-            i = next_yield[0]
-            while i < len(pending) and have_all(i):
-                yield deliver(i)
-                i += 1
-            next_yield[0] = i
-
-        def flush_all():
-            for key, idxs in list(buckets.items()):
-                if idxs:
-                    flush_bucket(key, idxs)
-            buckets.clear()
-            pipe.join_all()
-            for i in range(next_yield[0], len(pending)):
-                yield deliver(i)
-            pending.clear()
-            results.clear()
-            next_yield[0] = 0
-
-        def enqueue(i: int, ci: int, codes: np.ndarray, off: int,
-                    has_n: bool) -> int:
-            """Bucket one device row; returns its padded length."""
-            encoded[(i, ci)] = codes
-            pad = self._pad_len(len(codes))
-            key = (pad, has_n)
-            bucket = buckets.setdefault(key, [])
-            bucket.append((i, ci, off))
-            if len(bucket) >= batch_rows(pad, self.batch_bases):
-                flush_bucket(key, bucket)
-                buckets[key] = []
-            return pad
-
+        batches = _ContigBatches(self, k, w)
         try:
-            budget = 0
-            for name, seq in named_seqs:
-                n_seqs += 1
-                i = len(pending)
-                pending.append((name, len(seq)))
-                codes = (
-                    seq if isinstance(seq, np.ndarray)
-                    else nthash_np.encode(seq)
-                )
-                has_n = bool((codes > 3).any())
-                n_chunks[i] = 1
-                if len(codes) < k or (len(codes) > self.MAX_PAD and has_n):
-                    # chunk seams do not compose with the windows over
-                    # valid k-mers, so oversized N rows stay on the host
-                    results[(i, 0)] = self._host_sketch(codes, k, w)
-                elif len(codes) > self.MAX_PAD:
-                    S = self.MAX_PAD - (k + w - 2)
-                    M = len(codes) - (k + w - 2)  # windows in all
-                    nc = (M + S - 1) // S
-                    n_chunks[i] = nc
-                    self.chunked += 1
-                    for ci in range(nc):
-                        lo = ci * S
-                        hi = min(lo + S, M) + (k + w - 2)
-                        budget += enqueue(i, ci, codes[lo:hi], lo, False)
-                else:
-                    budget += enqueue(i, 0, codes, 0, has_n)
-                yield from ready_results()
-                if budget >= 4 * self.batch_bases:
-                    yield from flush_all()
-                    budget = 0
-            yield from flush_all()
+            yield from batches.run(named_seqs)
         finally:
-            pipe.close()
             secs = time.perf_counter() - t0
             self.stream_seconds += secs
             self.kernel_launches += sketch_cuda.launches - launches0
             graphs = step_graph.summary(step_graph.counts([self.graphs]),
                                         graphs0)
             print(
-                f"# ntlink_tpu_torch sketch ({self.device}): {n_seqs} "
+                f"# ntlink_tpu_torch sketch ({self.device}): {batches.seqs} "
                 f"sequence(s) in {secs:.3f} s; "
                 f"{sketch_cuda.launches - launches0} sketch kernel "
                 f"launch(es); so far {self.device_rows} device row(s), "
@@ -430,6 +247,130 @@ class TorchSketcher:
                 f"slot overflow); {graphs}",
                 file=sys.stderr,
             )
+
+
+class _ContigBatches(BatchStream):
+    """One contig sketch stream of a `TorchSketcher`. An item is a
+    sequence; a device row is a whole sequence or a chunk of one, tagged
+    (item, its chunks' results, chunk, offset). The drainer puts a
+    sequence's chunks' results in place, and the sequence in `results`
+    once they are all there."""
+
+    def __init__(self, sketcher: TorchSketcher, k: int, w: int):
+        super().__init__(sketcher, 2, "ntlink-torch-sketch")
+        self.sketcher, self.k, self.w = sketcher, k, w
+        #: sequences taken in
+        self.seqs = 0
+
+    def run(self, named_seqs):
+        sk, k, w = self.sketcher, self.k, self.w
+        try:
+            for name, seq in named_seqs:
+                self.seqs += 1
+                i = len(self.names)
+                self.names.append(name)
+                self.lengths.append(len(seq))
+                codes = (
+                    seq if isinstance(seq, np.ndarray)
+                    else nthash_np.encode(seq)
+                )
+                has_n = bool((codes > 3).any())
+                if len(codes) < k or (len(codes) > self.max_pad and has_n):
+                    # chunk seams do not compose with the windows over
+                    # valid k-mers, so oversized N rows stay on the host
+                    self.results[i] = [sk._host_sketch(codes, k, w)]
+                elif len(codes) > self.max_pad:
+                    S = self.max_pad - (k + w - 2)
+                    M = len(codes) - (k + w - 2)  # windows in all
+                    parts = [None] * ((M + S - 1) // S)
+                    sk.chunked += 1
+                    for ci in range(len(parts)):
+                        lo = ci * S
+                        hi = min(lo + S, M) + (k + w - 2)
+                        self.enqueue((i, parts, ci, lo), codes[lo:hi], False)
+                else:
+                    self.enqueue((i, [None], 0, 0), codes, has_n)
+                yield from self.ready()
+                if self.budget >= self.limit:
+                    yield from self.flush_all()
+            yield from self.flush_all()
+        finally:
+            self.pipe.close()
+
+    def enqueue(self, tag: tuple, codes: np.ndarray, has_n: bool) -> None:
+        """Bucket one device row."""
+        log_pad = int(self.pad_log2(len(codes)))
+        self.add(2 * log_pad + has_n, [tag], [codes])
+        self.budget += 1 << log_pad
+
+    def step(self, key, packed, nmask, lengths, n_rows: int):
+        sk, pad = self.sketcher, key[0]
+        slots = sk._slots_for(pad, self.w)
+        p, ln, nm = self.upload(sk.device, packed, lengths, nmask,
+                                copy=sk.graphs is None)
+        if sk.graphs is None:
+            out = sketch_step(p, ln, self.k, self.w, pad, slots, nmask=nm)
+        else:
+            # the graph set copies the host tensors into its inputs
+            out = sk.graphs.run(
+                sketch_step, dict(packed=p, lengths=ln, nmask=nm),
+                dict(k=self.k, w=self.w, L=pad, max_mins=slots))
+        # counted once the step is issued: a batch whose step raised
+        # launched no kernel
+        sk.batches_by_pad[key] = sk.batches_by_pad.get(key, 0) + 1
+        return slots, [(*self.download(out), 0, len(lengths))]
+
+    def decode(self, flat, slots, lo, hi, tags, rows) -> None:
+        B = hi - lo
+        count, n_mins = flat[:B], flat[B : 2 * B]
+        planes = flat[2 * B :].reshape(3, B * slots)
+        offs = np.zeros(B + 1, np.int64)
+        np.cumsum(count, out=offs[1:])
+        for row, (i, parts, ci, base_off) in enumerate(tags):
+            n = int(count[row])
+            if n_mins[row] > slots:
+                parts[ci] = _Resketch(rows[row], base_off)
+            else:
+                self.sketcher.device_rows += 1
+                o = int(offs[row])
+                ps = planes[0, o : o + n]
+                hashes = (
+                    planes[1, o : o + n].view(np.uint32).astype(np.uint64)
+                    << np.uint64(32)
+                ) | planes[2, o : o + n].view(np.uint32).astype(np.uint64)
+                parts[ci] = Minimizers(
+                    hashes, (ps & 0x3FFFFFFF).astype(np.int64) + base_off,
+                    (ps >> 30).astype(bool),
+                )
+            if None not in parts:
+                self.results[i] = parts
+
+    def take(self, parts) -> Minimizers:
+        """A sequence's sketch from its chunks' (each sketched on the host
+        where it overflowed its slots). The whole-sequence sketch emits at
+        window j iff winner(j) != winner(j-1); a chunk's first window
+        always emits, so drop it iff it equals the previous chunk's
+        last-window winner, which is that chunk's last emitted minimizer
+        before its own trim."""
+        hs, ps, fs = [], [], []
+        prev_last = -1
+        for m in parts:
+            if isinstance(m, _Resketch):
+                h = self.sketcher._host_sketch(m.codes, self.k, self.w)
+                m = Minimizers(h.hashes, h.positions + m.base_off, h.forward)
+            if len(parts) == 1:
+                return m
+            h, po, f = m.hashes, m.positions, m.forward
+            if len(po) and len(ps) and int(po[0]) == prev_last:
+                h, po, f = h[1:], po[1:], f[1:]
+            if len(m.positions):
+                prev_last = int(m.positions[-1])
+            hs.append(h)
+            ps.append(po)
+            fs.append(f)
+        return Minimizers(
+            np.concatenate(hs), np.concatenate(ps), np.concatenate(fs)
+        )
 
 
 #: the hybrid sketcher's assignment quanta: a block is ~one device bucket

@@ -1,9 +1,14 @@
-"""Shared three-thread scaffolding for the batched device streams.
+"""The batched, in-order device stream under both hot loops.
 
 Counterpart of ``ntlink_tpu/stream_pipeline.py`` without its
 capped-transfer protocol (the port copies each batch's whole payload back).
-Both hot loops (device_map.TorchMapper.map_stream_raw and
-sketch.TorchSketcher.sketch_stream) split their work over three threads:
+`BatchStream` is the one stream under the read mapper
+(``device_map.TorchMapper.map_stream_raw``) and the contig sketcher
+(``sketch.TorchSketcher.sketch_stream``): (pad, has N) buckets, full and
+partial batch heights, packing, the upload, the copy back, the budget
+flush and in-order delivery. Each client subclasses it with its intake,
+its step and its payload's decoding. The work is split over three
+threads (`DevicePipeline`):
 
   producer (caller's thread): read / encode / pack / consume results
   feeder:   every device call: H2D copies, step dispatch, async D2H starts
@@ -51,14 +56,18 @@ from __future__ import annotations
 
 import contextlib
 import os
+from collections import Counter
 import queue
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from . import tracing
+from .mapping_step import pack_codes
+from .native import fastx_module
 
 
 class DevicePipeline:
@@ -341,3 +350,255 @@ def split_n_rows(row_codes: List[np.ndarray], B: int, pad: int):
         bad[row, : len(c)] = b
         clean.append(np.where(b, 0, c).astype(np.uint8))
     return clean, np.packbits(bad, axis=1, bitorder="little")
+
+
+def batch_rows(pad: int, batch_bases: int) -> int:
+    """Rows of a full device batch at padded length `pad`: the power of two
+    nearest above batch_bases / pad (``DeviceMapper``'s batch height)."""
+    return next_pow2(max(1, batch_bases // pad))
+
+
+class BatchStream:
+    """One stream of rows through a device step, in batches, its items
+    delivered in input order. A client subclasses it with
+
+    - its intake: a generator that takes items in (`names`, `lengths`),
+      puts their device rows in buckets (`add`) and the rest's results in
+      `results`, and yields `ready` as it goes and `flush_all` once
+      `budget` reaches `limit`, and at its end;
+    - `step(key, packed, nmask, lengths, n_rows)`, on the feeder: every
+      device call of a batch of `key` (pad, has N), whose first `n_rows`
+      rows are rows and the rest padding, returning (slots, [(host
+      tensor, event, lo, hi)]): each block of rows lo..hi-1 with its
+      payload's copy back (`upload`, `download`);
+    - `decode(flat, slots, lo, hi, tags, rows)`, on the drainer: a block's
+      payload `flat` into `results` (`tags` and `rows` are the batch's
+      rows' tags and codes);
+    - `take(result)`, on the producer: an item's result as delivered.
+
+    A device row joins the bucket of its (pad, has N), coded 2 log2(pad)
+    + has N, which flushes as a batch once it holds `batch_rows` rows; a
+    partial flush steps the height down to the next power of two. Every
+    `FLUSH_BATCHES` batches' worth of padded bases (`limit`) every bucket
+    flushes and every item so far is delivered (`flush_all`). An item's
+    index counts from the last `flush_all`, and its result sits under that
+    index in `results` until it is delivered as (name, length,
+    take(result)).
+
+    `timer` keys the producer's pack, feed_enqueue_wait and flush_join,
+    the feeder's h2d_put, copy_back and drain_enqueue_wait, and the
+    drainer's drain_flat_wait and drain_decode (off by default); `wire`
+    counts the bytes each way and the seconds spent on them
+    (``TorchMapper.wire_stats``)."""
+
+    #: batches' worth of padded device rows between two flushes of every
+    #: bucket (`flush_all`)
+    FLUSH_BATCHES = 4
+
+    def __init__(self, owner, depth: int, name: str,
+                 timer: Optional[PhaseTimer] = None, wire=None):
+        """Pads and batch bases from `owner` (`MIN_PAD`, `MAX_PAD`,
+        `batch_bases`), read now."""
+        self.min_pad, self.max_pad = owner.MIN_PAD, owner.MAX_PAD
+        self.batch_bases = owner.batch_bases
+        self.limit = self.FLUSH_BATCHES * owner.batch_bases
+        self.timer = PhaseTimer(False) if timer is None else timer
+        self.wire = Counter() if wire is None else wire
+        self.names: List[str] = []
+        self.lengths: List[int] = []
+        self.results: Dict[int, object] = {}
+        #: the next item to deliver
+        self.next_yield = 0
+        #: bucket code -> (row tags, row codes), in the order of each
+        #: bucket's first row since the last flush_all
+        self.buckets: Dict[int, Tuple[list, list]] = {}
+        #: padded bases of the device rows since the last flush_all
+        self.budget = 0
+        self.pipe = DevicePipeline(self._dispatch, self._drain, depth=depth,
+                                   name=name)
+
+    # -- rows and buckets (producer) ----------------------------------------
+
+    def pad_log2(self, lengths):
+        """log2 of the padded length of rows of `lengths` bases: the next
+        power of two, held between MIN_PAD and MAX_PAD (``frexp`` of n - 1
+        is its bit length, exact below 2**53)."""
+        bits = np.frexp(np.maximum(lengths, 1) - 1)[1]
+        return np.clip(bits, self.min_pad.bit_length() - 1,
+                       self.max_pad.bit_length() - 1).astype(np.int64)
+
+    def full_height(self, code: int) -> int:
+        return batch_rows(1 << (code >> 1), self.batch_bases)
+
+    def room(self, code: int) -> int:
+        """Rows that bucket `code` takes before it flushes."""
+        bucket = self.buckets.get(code)
+        return self.full_height(code) - (0 if bucket is None
+                                         else len(bucket[0]))
+
+    def add(self, code: int, tags: list, rows: list) -> bool:
+        """Put device rows (`rows`: codes, `tags`: the client's handle on
+        each) in bucket `code`, flushing it if it fills; whether it did."""
+        bucket = self.buckets.get(code)
+        if bucket is None:
+            bucket = self.buckets[code] = ([], [])
+        bucket[0].extend(tags)
+        bucket[1].extend(rows)
+        if len(bucket[0]) < self.full_height(code):
+            return False
+        self.flush_bucket(code)
+        return True
+
+    def flush_bucket(self, code: int) -> None:
+        tags, rows = self.buckets[code]
+        self.buckets[code] = ([], [])
+        key = pad, has_n = 1 << (code >> 1), bool(code & 1)
+        B = min(self.full_height(code), next_pow2(len(tags)))
+        lengths = np.zeros(B, dtype=np.int32)
+        lengths[: len(rows)] = [len(c) for c in rows]
+        timer = self.timer
+        ts = timer.now()
+        packed, nmask = pack_batch(rows, B, pad, has_n)
+        ts = timer.mark("pack", ts)
+        self.pipe.submit((key, packed, nmask, lengths, tags, rows))
+        timer.mark("feed_enqueue_wait", ts)
+
+    # -- delivery (producer) ------------------------------------------------
+
+    def ready(self):
+        """The items whose results are in, in input order, up to the first
+        that is not (the drainer only adds results; this thread pops)."""
+        names, lengths, results = self.names, self.lengths, self.results
+        take = self.take
+        i = self.next_yield
+        while i < len(names) and i in results:
+            yield names[i], lengths[i], take(results.pop(i))
+            i += 1
+        self.next_yield = i
+
+    def flush_all(self):
+        """Flush every bucket, wait for every batch, and deliver every item
+        so far."""
+        for code, (tags, _) in list(self.buckets.items()):
+            if tags:
+                self.flush_bucket(code)
+        self.buckets.clear()
+        ts = self.timer.now()
+        self.pipe.join_all()
+        self.timer.mark("flush_join", ts)
+        names, lengths, results = self.names, self.lengths, self.results
+        for i in range(self.next_yield, len(names)):
+            yield names[i], lengths[i], self.take(results.pop(i))
+        names.clear()
+        lengths.clear()
+        self.next_yield = self.budget = 0
+
+    # -- device calls (feeder and drainer) ----------------------------------
+
+    def upload(self, device: torch.device, packed: np.ndarray,
+               lengths: np.ndarray, nmask, copy: bool, rows=None):
+        """Feeder: (packed, lengths, nmask or None) as host tensors, in
+        pinned memory on a CUDA device, then with `copy` on `device` by an
+        asynchronous upload on the current stream (without, a graph set or
+        a sharded step copies them in itself). The devices get `rows` of
+        its rows in all (default: each once), for `wire`."""
+        tw = time.perf_counter()
+        out = pinned(device, packed, lengths, nmask)
+        if copy and device.type == "cuda":
+            out = tuple(None if t is None else t.to(device, non_blocking=True)
+                        for t in out)
+        dt = time.perf_counter() - tw
+        self.timer.add("h2d_put", dt)
+        nbytes = (packed.nbytes + lengths.nbytes
+                  + (0 if nmask is None else nmask.nbytes))
+        self.wire["h2d"] += (nbytes if rows is None
+                             else nbytes * rows // len(lengths))
+        self.wire["h2d_s"] += dt
+        return out
+
+    def download(self, out: torch.Tensor):
+        """Feeder: `copy_back` of a step's payload."""
+        ts = self.timer.now()
+        host = copy_back(out)
+        self.timer.mark("copy_back", ts)
+        return host
+
+    def _dispatch(self, key, packed, nmask, lengths, tags, rows) -> None:
+        slots, blocks = self.step(key, packed, nmask, lengths, len(tags))
+        ts = self.timer.now()
+        self.pipe.submit_drain((slots, blocks, tags, rows))
+        self.timer.mark("drain_enqueue_wait", ts)
+
+    def _drain(self, slots, blocks, tags, rows) -> None:
+        # the blocks in row order: each item's result lands under its own
+        # index, so the items of other batches keep their place
+        timer, wire = self.timer, self.wire
+        for host, event, lo, hi in blocks:
+            tw = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            flat = host.numpy()
+            dt = time.perf_counter() - tw
+            wire["d2h"] += flat.nbytes
+            wire["d2h_s"] += dt
+            timer.add("drain_flat_wait", dt)
+            ts = timer.now()
+            self.decode(flat, slots, lo, hi, tags, rows)
+            timer.mark("drain_decode", ts)
+
+
+_TORCH_DTYPES = {np.uint8: torch.uint8, np.int32: torch.int32}
+
+
+def pinned(device: torch.device, *arrays):
+    """Host tensors of `arrays` (None stays None), in pinned memory when
+    `device` is a CUDA device, so that several devices can each start an
+    asynchronous upload of their share."""
+    on_cuda = device.type == "cuda"
+    out = []
+    for a in arrays:
+        if a is None:
+            out.append(None)
+            continue
+        t = torch.empty(a.shape, dtype=_TORCH_DTYPES[a.dtype.type],
+                        pin_memory=on_cuda)
+        t.numpy()[...] = a
+        out.append(t)
+    return tuple(out)
+
+
+def copy_back(out: torch.Tensor):
+    """Start the copy of a step's payload to the host: (host tensor, CUDA
+    event marking the copy's end, or None on the CPU). The drainer waits
+    on the event before it reads the host tensor. A graph's payload is its
+    static output, which the next replay overwrites, so on the CPU too the
+    payload is copied."""
+    if out.device.type != "cuda":
+        return out.clone(), None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def pack_batch(row_codes: List[np.ndarray], B: int, pad: int, has_n: bool):
+    """Host side of a device batch: (packed (B, pad/4) uint8 2-bit codes,
+    nmask (B, pad/8) bit-packed non-ACGT mask or None). Rows of a has_n
+    batch are cleaned to A for packing (``split_n_rows``)."""
+    nmask = None
+    if has_n:
+        row_codes, nmask = split_n_rows(row_codes, B, pad)
+    native = fastx_module()
+    if native is not None:
+        buf = native.pack_batch(row_codes, pad)
+        packed = np.frombuffer(buf, np.uint8).reshape(-1, pad // 4)
+        if packed.shape[0] < B:
+            packed = np.vstack([
+                packed, np.zeros((B - packed.shape[0], pad // 4), np.uint8),
+            ])
+        return packed, nmask
+    codes = np.zeros((B, pad), dtype=np.uint8)
+    for row, c in enumerate(row_codes):
+        codes[row, : len(c)] = c
+    return pack_codes(codes), nmask

@@ -218,7 +218,7 @@ def _graph_call(kind, pad, has_n, B, seed, dev):
     indexed contigs (with N when `has_n`): (step, [host batch dicts],
     static arguments on `dev`)."""
     from ntlink_tpu_torch import mapping_step as ms
-    from ntlink_tpu_torch.device_map import pack_batch, pinned
+    from ntlink_tpu_torch.stream_pipeline import pack_batch, pinned
     from ntlink_tpu_torch.index import ContigIndex
     from ntlink_tpu_torch.ops import nthash_np
 
@@ -266,7 +266,7 @@ def test_step_graph_replays_equal_eager_on_card(kind, pad, has_n):
     the kernel is counted once per batch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    from ntlink_tpu_torch.device_map import copy_back
+    from ntlink_tpu_torch.stream_pipeline import copy_back
     from ntlink_tpu_torch.step_graph import StepGraphs
 
     dev = torch.device("cuda", 0)

@@ -10,10 +10,11 @@ from ntlink_tpu.device_map import DeviceMapper
 from ntlink_tpu.host_map import HostMapper
 from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.ops import nthash_np
-from ntlink_tpu_torch import device_map
+from ntlink_tpu_torch import stream_pipeline
 from ntlink_tpu_torch.chain import CHAIN_MAX_CONTIGS
-from ntlink_tpu_torch.device_map import TorchMapper, batch_rows
+from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.seqio.fastx import CodeBlock
+from ntlink_tpu_torch.stream_pipeline import batch_rows, next_pow2
 
 K, W = 32, 100
 
@@ -187,7 +188,7 @@ def _per_read_flushes(mapper, reads):
     for i, (_, codes) in enumerate(reads):
         if not mapper.k <= len(codes) <= mapper.MAX_PAD:
             continue
-        pad = mapper._pad_len(len(codes))
+        pad = min(max(next_pow2(len(codes)), mapper.MIN_PAD), mapper.MAX_PAD)
         key = (pad, bool((codes > 3).any()))
         bucket = buckets.setdefault(key, [])
         bucket.append(i)
@@ -212,13 +213,13 @@ def _cut(reads, ends):
 
 def _dispatched(monkeypatch):
     """[((pad, has N), rows)] of every batch packed from now on, in order."""
-    seen, real = [], device_map.pack_batch
+    seen, real = [], stream_pipeline.pack_batch
 
     def pack(row_codes, B, pad, has_n):
         seen.append(((pad, has_n), len(row_codes)))
         return real(row_codes, B, pad, has_n)
 
-    monkeypatch.setattr(device_map, "pack_batch", pack)
+    monkeypatch.setattr(stream_pipeline, "pack_batch", pack)
     return seen
 
 

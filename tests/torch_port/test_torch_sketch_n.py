@@ -1,7 +1,7 @@
 """N rows through the port's own sketch path, after
 ``tests/test_sketch_n.py``: rows with N runs (single, long, at either end,
 many, all N, valid stretches shorter than w, a short row) are packed as the
-streams pack them (`device_map.pack_batch`: cleaned to A, a bit mask of
+streams pack them (`stream_pipeline.pack_batch`: cleaned to A, a bit mask of
 the N), sketched (`mapping_step.sketch_batch`: the kernel's plain version
 on the CPU, then `ops.sketch_torch.compact_windows`) and finished
 (`finish_hash`); the minimizers equal ``ntlink_tpu``'s `nthash_np` and the
@@ -16,10 +16,10 @@ import torch
 
 from ntlink_tpu.ops import nthash_np
 from ntlink_tpu.ops.sketch_jax import sketch_batch_kernel
-from ntlink_tpu_torch.device_map import pack_batch
 from ntlink_tpu_torch.mapping_step import sketch_batch
 from ntlink_tpu_torch.ops.sketch_torch import finish_hash
 from ntlink_tpu_torch.sketch import TorchSketcher
+from ntlink_tpu_torch.stream_pipeline import pack_batch
 
 K, W = 32, 100
 

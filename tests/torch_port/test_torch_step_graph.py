@@ -22,10 +22,11 @@ from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.ops import nthash_np
 from ntlink_tpu_torch import mapping_step as ms
 from ntlink_tpu_torch import step_graph, tracing
-from ntlink_tpu_torch.device_map import TorchMapper, copy_back
+from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.mapping_step import DeviceIndex, mapping_step, sketch_step
 from ntlink_tpu_torch.ops import sketch_cuda, sketch_torch
 from ntlink_tpu_torch.sketch import TorchSketcher
+from ntlink_tpu_torch.stream_pipeline import copy_back
 
 from .test_torch_device_map import K, W, _chimera, _dataset, _raws, _same, \
     _same_runs

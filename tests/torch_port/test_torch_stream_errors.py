@@ -11,7 +11,7 @@ import pytest
 
 from ntlink_tpu.index import ContigIndex
 from ntlink_tpu.ops import nthash_np
-from ntlink_tpu_torch import device_map, sketch
+from ntlink_tpu_torch import device_map, sketch, stream_pipeline
 from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.sketch import TorchSketcher
 
@@ -71,7 +71,8 @@ def test_drainer_error_propagates(small_index, timing_env, monkeypatch):
         def numpy(self):
             raise Boom("transfer failed")
 
-    monkeypatch.setattr(device_map, "copy_back", lambda out: (Poison(), None))
+    monkeypatch.setattr(stream_pipeline, "copy_back",
+                        lambda out: (Poison(), None))
     with pytest.raises(Boom):
         list(mapper.map_stream_raw(iter(_reads(contig))))
     assert mapper.wire_stats["d2h"] == 0 < mapper.wire_stats["h2d"]

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 
 from ntlink_tpu.device_map import DeviceMapper
-from ntlink_tpu_torch import device_map
+from ntlink_tpu_torch import device_map, stream_pipeline
 from ntlink_tpu_torch.device_map import TorchMapper
 from ntlink_tpu_torch.stream_pipeline import PhaseTimer
 
@@ -118,7 +118,8 @@ def test_wire_stats_count_the_batches_bytes(layout, monkeypatch):
     tm = TorchMapper(index, K, W, batch_bases=65536, **kw)
     assert tm.wire_stats == {"h2d": 0, "d2h": 0, "h2d_s": 0.0, "d2h_s": 0.0}
     up, down, rows_by_pad = [], [], {}
-    real_pinned, real_back = device_map.pinned, device_map.copy_back
+    real_pinned = stream_pipeline.pinned
+    real_back = stream_pipeline.copy_back
 
     def pinned(device, *arrays):
         up.append(sum(a.nbytes for a in arrays if a is not None))
@@ -131,8 +132,8 @@ def test_wire_stats_count_the_batches_bytes(layout, monkeypatch):
         down.append(out.numel() * out.element_size())
         return real_back(out)
 
-    monkeypatch.setattr(device_map, "pinned", pinned)
-    monkeypatch.setattr(device_map, "copy_back", copy_back)
+    monkeypatch.setattr(stream_pipeline, "pinned", pinned)
+    monkeypatch.setattr(stream_pipeline, "copy_back", copy_back)
     got = _raws(tm, reads)
     copies = 2 if layout == "hash grid" else 1
     assert tm.idx_shards == (2 if layout.startswith("hash") else 1)
@@ -148,7 +149,7 @@ def test_wire_stats_count_the_batches_bytes(layout, monkeypatch):
     assert set(rows_by_pad) == set(tm.batches_by_pad)
     assert any(has_n for _, has_n in rows_by_pad)
     for key, rows in rows_by_pad.items():
-        full = device_map.batch_rows(key[0], 65536) * tm.batches_by_pad[key]
+        full = stream_pipeline.batch_rows(key[0], 65536) * tm.batches_by_pad[key]
         assert 0 < rows <= full
     assert tm.wire_stats["d2h"] == sum(down) > 0
     assert tm.wire_stats["h2d_s"] > 0.0 and tm.wire_stats["d2h_s"] >= 0.0
@@ -167,13 +168,13 @@ def test_pipe_depth_is_honoured_and_changes_no_payload(depth, monkeypatch):
     index, reads = _dataset()
     monkeypatch.delenv("NTLINK_PIPE_DEPTH", raising=False)
     depths = []
-    real = device_map.DevicePipeline
+    real = stream_pipeline.DevicePipeline
 
     def pipeline(dispatch, drain, depth, name):
         depths.append(depth)
         return real(dispatch, drain, depth=depth, name=name)
 
-    monkeypatch.setattr(device_map, "DevicePipeline", pipeline)
+    monkeypatch.setattr(stream_pipeline, "DevicePipeline", pipeline)
     tm = TorchMapper(index, K, W, batch_bases=65536, device="cpu",
                      prechain=PRECHAIN)
     want = _raws(tm, reads)
