@@ -77,7 +77,13 @@ once a device call, never once a read: each such stream's summary line
 gives its own, and they go to ``tracing.GLOBAL`` as a ``map/join`` count,
 as the table's `TableLayout` goes at ``table/build``. A held stream's
 line also gives its consumer's ``render/verbose`` count (the anchors and
-bytes of its verbose lines), again only while the Tracer is on.
+bytes of its verbose lines), again only while the Tracer is on. So does
+`decode_stats`, what the drainer's decoding of each device block
+(`_ReadBatches.decode`) does, in either layout: the `blocks` decoded, the
+`rows` delivered with anchors from a block's arrays, the `remaps` (rows
+over their slot or run-lane budget, for the host path) and the `empty`
+rows (no anchor), counted once a block and taken as a ``map/decode``
+count.
 """
 from __future__ import annotations
 
@@ -324,6 +330,9 @@ class TorchMapper:
         #: module's text; replicated layout only); the feeder writes slots
         #: and bucket_bytes, the drainer queries
         self.join_stats = {"slots": 0, "queries": 0, "bucket_bytes": 0}
+        #: the drainer's decoded blocks, and their rows with anchors,
+        #: remapped and empty, over every stream the Tracer was on for
+        self.decode_stats = {"blocks": 0, "rows": 0, "remaps": 0, "empty": 0}
         #: NTLINK_TIMING=1: the last stream's {phase: (seconds, spans)};
         #: empty when the variable is unset
         self.last_timing: Dict[str, Tuple[float, int]] = {}
@@ -487,6 +496,7 @@ class TorchMapper:
         reads0 = self.device_reads + self.host_fallbacks
         blocks0 = self.read_blocks
         join0 = dict(self.join_stats) if tracing.GLOBAL.enabled else None
+        decode0 = dict(self.decode_stats) if tracing.GLOBAL.enabled else None
         counts0 = len(tracing.GLOBAL.counts) if tracing.GLOBAL.enabled else None
         t0 = time.perf_counter()
         c0 = timer.cpu_now()
@@ -510,6 +520,7 @@ class TorchMapper:
                 else "prechained" if self.prechained else "host-chained"
             )
             join = self._join_since(join0)
+            decode = self._decode_since(decode0)
             render = _render_since(counts0)
             print(
                 f"# ntlink_tpu_torch device-map ({self.layout()}, {mode}): {n} "
@@ -521,7 +532,7 @@ class TorchMapper:
                 f"on the device, batches by (pad, has N) "
                 f"{self.batches_by_pad}, and {self.host_fallbacks} on the "
                 f"exact host path (sub-k, > {self.MAX_PAD} bases, slot or "
-                f"run-lane overflow); {join}{render}"
+                f"run-lane overflow); {join}{decode}{render}"
                 f"{step_graph.summary(self.graph_counts(), graphs0)}",
                 file=sys.stderr,
             )
@@ -543,6 +554,17 @@ class TorchMapper:
                 f"buckets, {layout.regime}, max_probes {layout.max_probes}): "
                 f"{d['slots']} slots, {queries}, {d['bucket_bytes']} bytes "
                 f"of buckets gathered; ")
+
+    def _decode_since(self, decode0: Optional[Dict[str, int]]) -> str:
+        """The drainer's decode counts of the stream that began at `decode0`
+        (None: not counted, the Tracer off), as a clause of the summary
+        line, and to ``tracing.GLOBAL``."""
+        if decode0 is None:
+            return ""
+        d = {key: self.decode_stats[key] - decode0[key] for key in decode0}
+        tracing.GLOBAL.count("map/decode", **d)
+        return (f"decoded {d['blocks']} device block(s): {d['rows']} rows "
+                f"with anchors, {d['remaps']} remapped, {d['empty']} empty; ")
 
     @contextlib.contextmanager
     def hold_stream(self, timer: PhaseTimer):
@@ -647,7 +669,7 @@ class _ReplicaSet:
                              runs=m.runs_only, with_hashes=m.with_hashes))
                 timer.mark("dispatch", ts)
                 rep.launches += sketch_cuda.launches - launches
-                if stream.count_join:
+                if stream.counting:
                     join["slots"] += (hi - lo) * slots
                     join["bucket_bytes"] += ((hi - lo) * slots
                                              * rep.didx.max_probes
@@ -660,7 +682,7 @@ class _ReplicaSet:
         """(count, n_mins, planes) of a block of B rows."""
         m = self.mapper
         count, n_mins = flat[:B], flat[B : 2 * B]
-        if stream.count_join and not m.runs_only:
+        if stream.counting and not m.runs_only:
             m.join_stats["queries"] += int(np.minimum(n_mins, slots).sum())
         lanes = B * (RUN_LANES if m.runs_only else slots)
         return count, n_mins, flat[2 * B :].reshape(-1, lanes)
@@ -745,7 +767,8 @@ class _ReadBatches(BatchStream):
         super().__init__(mapper, depth, "ntlink-torch-map", timer,
                          mapper.wire_stats)
         self.mapper = mapper
-        self.count_join = tracing.GLOBAL.enabled
+        #: the Tracer is on: the stream counts its join and its decode
+        self.counting = tracing.GLOBAL.enabled
 
     def run(self, blocks):
         """Yield (name, length, raw) of every read of `blocks`, in order.
@@ -834,42 +857,50 @@ class _ReadBatches(BatchStream):
                                    lengths, n_rows)
 
     def decode(self, flat, slots, lo, hi, tags, rows) -> None:
-        """Batch rows lo..hi-1 (rows 0.. of this block's payload)."""
+        """Batch rows lo..hi-1 (rows 0.. of this block's payload; rows past
+        the batch's tags are padding). The block's anchors are decoded
+        once, over the whole block, and each read's result holds its
+        slices of those arrays: views, which no consumer writes into."""
         m = self.mapper
         count, n_mins, planes = m._steps.payload(self, flat, hi - lo, slots)
-        hi = min(hi, len(tags))
+        offs = np.zeros(len(count) + 1, np.int64)
+        np.cumsum(count, out=offs[1:])
+        total = int(offs[-1])
+        n = min(hi, len(tags)) - lo
+        # run-lane overflow reports RUN_LANES + 1 in n_mins
+        over = n_mins[:n] > (RUN_LANES if m.runs_only else slots)
+        bare = count[:n] == 0
+        remap = (np.flatnonzero(over) + lo).tolist()
+        empty = (np.flatnonzero(bare & ~over) + lo).tolist()
+        full = np.flatnonzero(~(bare | over))
         results = self.results
+        for row in remap:
+            results[tags[row]] = _Remap(rows[row])
+        results.update(dict.fromkeys(map(tags.__getitem__, empty)))
+        spans = zip(offs[full].tolist(), offs[full + 1].tolist())
+        full_tags = map(tags.__getitem__, (full + lo).tolist())
         if m.runs_only:
-            # run-lane overflow reports RUN_LANES + 1 in n_mins
-            slots = RUN_LANES
-            total = int(count.sum())
-            cid, cnt, f_cpos, l_cpos, f_rw, l_rw = planes[:, :total]
+            cid, cnt, f_cpos, l_cpos, f_rw, l_rw = (p[:total]
+                                                    for p in planes[:6])
             runs = np.stack([
                 cid, cnt, f_cpos, f_rw & 0x1FFFFFFF, (f_rw >> 29) & 3,
                 l_cpos, l_rw & 0x1FFFFFFF, (l_rw >> 29) & 3,
             ], axis=1)
-        offs = np.zeros(len(count) + 1, np.int64)
-        np.cumsum(count, out=offs[1:])
-        for row in range(lo, hi):
-            i = tags[row]
-            r = row - lo
-            n = int(count[r])
-            if n_mins[r] > slots:
-                results[i] = _Remap(rows[row])
-                continue
-            if n == 0:
-                results[i] = None
-                continue
-            o = int(offs[r])
-            if m.runs_only:
-                results[i] = (n, runs[o : o + n])
-                continue
-            rw = planes[0][o : o + n]
+            results.update(zip(full_tags, (
+                (e - o, runs[o:e]) for o, e in spans)))
+        else:
+            rw, cid, cpos = (p[:total] for p in planes[:3])
+            rpos, sbits = rw & 0x1FFFFFFF, (rw >> 29) & 3
             if m.with_hashes:
-                hi_, lo_ = planes[3][o : o + n], planes[4][o : o + n]
+                hs, ls = planes[3][:total], planes[4][:total]
             else:
-                hi_ = lo_ = np.zeros(n, np.int32)
-            results[i] = (
-                n, rw & 0x1FFFFFFF, planes[1][o : o + n],
-                planes[2][o : o + n], (rw >> 29) & 3, hi_, lo_,
-            )
+                hs = ls = np.zeros(total, np.int32)
+            results.update(zip(full_tags, (
+                (e - o, rpos[o:e], cid[o:e], cpos[o:e], sbits[o:e], hs[o:e],
+                 ls[o:e]) for o, e in spans)))
+        if self.counting:
+            stats = m.decode_stats
+            stats["blocks"] += 1
+            stats["rows"] += len(full)
+            stats["remaps"] += len(remap)
+            stats["empty"] += len(empty)

@@ -25,8 +25,9 @@ recording no range is opened. `add` records a span whose interval was
 measured elsewhere (the sum of a stage's pieces, or a worker path's first
 and last block); such a span opens no range. `count` records named
 counts (`Count`: a built table's layout at ``table/build``, a read
-stream's join counts at ``map/join``, the anchors and bytes of its
-verbose lines at ``render/verbose``), in the order they were taken, so
+stream's join counts at ``map/join``, its drainer's decoded blocks and
+rows at ``map/decode``, the anchors and bytes of its verbose lines at
+``render/verbose``), in the order they were taken, so
 that they can be read after the objects that kept them are gone.
 
 A replayed CUDA graph records none of those ranges, so while a profile

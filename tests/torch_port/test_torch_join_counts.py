@@ -262,5 +262,5 @@ def test_tracer_takes_one_join_count_a_stream(skewed, monkeypatch):
         # the consumer's count of each verbose stream comes before the
         # stream's own, which its summary line takes at the stream's end
         assert [c.name for c in tracing.GLOBAL.counts] == [
-            "table/build", "render/verbose", "map/join", "render/verbose",
-            "map/join"]
+            "table/build", "render/verbose", "map/join", "map/decode",
+            "render/verbose", "map/join", "map/decode"]
